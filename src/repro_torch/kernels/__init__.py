@@ -1,0 +1,79 @@
+"""Hand-written Hopper kernels of the port, their dispatch rule and build.
+
+Each kernel package holds a CUDA source under ``csrc/``, a plain PyTorch
+version (``ref.py``) and a wrapper (``ops.py``).  Kernel modules are
+imported lazily and nothing is compiled at import: :func:`load_library`
+runs ``nvcc`` at a kernel's first launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+REPO_ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# Seconds and compiler output of each build made in this process, by source.
+BUILD_LOG: Dict[str, Dict[str, object]] = {}
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """The dispatch rule (the counterpart of ``repro.kernels.resolve_interpret``):
+    a CPU tensor gets the plain PyTorch version, a CUDA tensor gets the
+    kernel.  There is no fallback: a wrapper whose kernel fails on a CUDA
+    tensor raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type == "cuda":
+        return True
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built at first use")
+
+
+def load_library(source: Path) -> ctypes.CDLL:
+    """Builds ``source`` into ``build/repro_torch/<stem>-<hash>.so`` (the
+    hash is of the source, so an edited file rebuilds) and loads it."""
+    source = Path(source)
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    out = BUILD_DIR / f"{source.stem}-{digest}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {source.name} ({proc.returncode}):\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, out)
+        BUILD_LOG[source.name] = {
+            "seconds": time.perf_counter() - t0,
+            "ptxas": proc.stderr.strip(),
+        }
+    return ctypes.CDLL(str(out))
