@@ -3,26 +3,38 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
-against its plain PyTorch version on the card, then drives the port's main
-path, ``solve(edges, Problem.undirected(eps, backend='pallas'))`` on the
-geometric compaction ladder, on the README quickstart graph, on a 200k-node
-Chung-Lu graph and at FLICKR scale (976k nodes, 7.6M edges drawn, Chung-Lu
-with exponent 2.2, seed 0).  Answers are checked against the exact backend,
-the port on the CPU and the JAX package's golden fixture
+Builds the port's three CUDA kernels from the sources in this checkout (one
+``nvcc`` each, all started together), holds each against its plain PyTorch
+version on the card, then drives the port's three paths through the
+entry points a user calls:
+
+* Algorithm 1 on the geometric ladder, ``solve(edges,
+  Problem.undirected(eps, backend='pallas'))`` (K1, tiled degrees), on the
+  README quickstart graph, a 200k-node Chung-Lu graph and at FLICKR scale
+  (976k nodes, 7.6M edges drawn, Chung-Lu exponent 2.2, seed 0);
+* the §5.1 Count-Sketch backend that ``backend='auto'`` picks above 1M
+  nodes (K2, the counter update), at LIVEJOURNAL scale (4.84M nodes,
+  68.9M edges drawn, Chung-Lu exponent 2.2, seed 0);
+* the turnstile runtime, ``TurnstileDensest`` (K3, the l0-sketch update;
+  K1 again on the sample peel), on a churn stream over the FLICKR graph.
+
+Answers are checked against the exact backend, the plain versions, the
+port on the CPU and the JAX package's golden fixture
 (tests/fixtures/torch_port/golden.json).  Any failed check raises, so the
 exit code is not 0.
 
 Output: the torch/CUDA versions and ``nvidia-smi``'s name and power limit
 first; then one line per phase; then, on the line before the last, the
-kernels' JSON record (launches on the FLICKR main-path run, error against
-the plain version, median times from CUDA events, the memory bound); last,
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
-prints no result.
+kernels' JSON record (launches on each path's run, error against the plain
+version, median times from CUDA events, the memory bound, a library call's
+time); last, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
+exits 2 and prints no result.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import json
 import subprocess
 import sys
@@ -36,7 +48,11 @@ sys.path.insert(0, str(ROOT / "scripts"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 EPS = 0.5
 FLICKR = dict(n=976_000, exponent=2.2, avg_deg=2 * 7.6e6 / 976_000, seed=0)
+# src/repro/configs/densest_mapreduce.py SHAPES["livejournal_md"].
+LIVEJOURNAL = dict(n=4_840_000, exponent=2.2, avg_deg=2 * 68.9e6 / 4_840_000, seed=0)
+TURNSTILE_BATCH = 1 << 20
 TIMED_LAUNCHES = 30
+DEV = "cuda"  # every tensor of the run lives here
 
 
 def log(phase: str, **kv) -> None:
@@ -72,12 +88,14 @@ def check_equal(what: str, got, want) -> float:
     return 0.0
 
 
-def check_close(what: str, got, want) -> float:
-    """rtol/atol 1e-5: float weights are summed in another order."""
-    import torch
-
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5, msg=what)
-    return (got.double() - want.double()).abs().max().item()
+def check_close(what: str, got, want, tol: float = 1e-5) -> float:
+    """rtol/atol ``tol``: float weights are summed in another order."""
+    err = (got.double() - want.double()).abs()
+    bad = err > tol + tol * want.double().abs()
+    if bad.any():
+        raise AssertionError(f"{what}: {int(bad.sum())} values outside rtol=atol={tol} "
+                             f"(max abs err {err.max().item()})")
+    return err.max().item()
 
 
 def kernel_bound_ms(tiling, n_edges: int) -> float:
@@ -108,16 +126,24 @@ def phase_environment() -> str:
 
 
 def phase_build() -> None:
+    """Builds K1, K2 and K3 from this checkout's sources, one ``nvcc`` per
+    source, all started together."""
     from repro_torch.kernels import BUILD_LOG, load_library
-    from repro_torch.kernels.peel_degree import ops
+    from repro_torch.kernels.count_sketch import ops as cs_ops
+    from repro_torch.kernels.l0_sampler import ops as l0_ops
+    from repro_torch.kernels.peel_degree import ops as pd_ops
 
+    sources = [pd_ops.SOURCE, cs_ops.SOURCE, l0_ops.SOURCE]
     t0 = time.perf_counter()
-    load_library(ops.SOURCE)
-    info = BUILD_LOG.get(ops.SOURCE.name, {"seconds": 0.0, "ptxas": "(cached build)"})
-    log("build", source=ops.SOURCE.relative_to(ROOT), seconds=round(time.perf_counter() - t0, 3),
-        nvcc_seconds=round(info["seconds"], 3))
-    for line in str(info["ptxas"]).splitlines():
-        print(f"  {line}", flush=True)
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(load_library, sources))
+    wall = time.perf_counter() - t0
+    for src in sources:
+        info = BUILD_LOG.get(src.name, {"seconds": 0.0, "ptxas": "(cached build)"})
+        log("build", source=src.relative_to(ROOT), nvcc_seconds=round(info["seconds"], 3),
+            all_builds_wall_seconds=round(wall, 3))
+        for line in str(info["ptxas"]).splitlines():
+            print(f"  {line}", flush=True)
 
 
 def _adversarial_cases(dev):
@@ -277,18 +303,18 @@ def phase_quickstart() -> None:
 
     for name, (gen, kw) in golden.GRAPHS.items():
         answers = {}
-        for dev in ("cuda", "cpu"):
+        for dev in (DEV, "cpu"):
             out = getattr(generators, gen)(**kw, device=dev)
             edges = out[0] if isinstance(out, tuple) else out
             for backend in golden.BACKENDS:
                 res = solve(edges, Problem.undirected(eps=golden.EPS, backend=backend,
                                                       track_history=True))
                 answers[dev, backend] = res
-        ref = answers["cuda", "pallas"]
+        ref = answers[DEV, "pallas"]
         for key, res in answers.items():
             _same_answer(f"{name} cuda/pallas vs {key}", ref, res)
         for backend in golden.BACKENDS:
-            _golden_check(name, backend, answers["cuda", backend])
+            _golden_check(name, backend, answers[DEV, backend])
         extra = {}
         if name == "quickstart":
             planted = np.arange(kw["k"])
@@ -345,23 +371,20 @@ def phase_flickr(flickr) -> dict:
     return {"launches": launches_p}
 
 
-def phase_profile(flickr) -> None:
-    """Where the FLICKR pallas solve's device time goes, by kernel name
-    (torch.profiler), and the device's busy share of the solve's wall time
-    (measured without the profiler)."""
+def phase_profile(label: str, run) -> None:
+    """Where one run's device time goes, by kernel name (torch.profiler),
+    and the device's busy share of its wall time (the wall measured on a
+    run without the profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import Problem, solve
-
-    prob = Problem.undirected(eps=EPS, backend="pallas")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    solve(flickr, prob)
+    run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        solve(flickr, prob)
+        run()
         torch.cuda.synchronize()
 
     def dev_us(ev):
@@ -370,13 +393,495 @@ def phase_profile(flickr) -> None:
     rows = [ev for ev in prof.key_averages() if ev.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(dev_us(ev) for ev in rows) / 1e3
     if busy_ms == 0:
-        log("profile", device_time="not measured (the profiler recorded no device events)",
-            wall_ms=wall_ms)
+        log("profile", run=label,
+            device_time="not measured (the profiler recorded no device events)", wall_ms=wall_ms)
         return
-    log("profile", wall_ms=wall_ms, device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
-        device_idle_share=1 - busy_ms / wall_ms)
+    log("profile", run=label, wall_ms=wall_ms, device_busy_ms=busy_ms,
+        device_busy_share=busy_ms / wall_ms, device_idle_share=1 - busy_ms / wall_ms)
     for ev in sorted(rows, key=dev_us, reverse=True)[:15]:
         print(f"  {dev_us(ev) / 1e3:9.4f} ms  x{ev.count:<4d} {ev.key[:110]}", flush=True)
+
+
+# -- K2 and the Count-Sketch path (livejournal_md) ---------------------------
+
+
+def sketch_bound_ms(n_edges: int, t: int, b: int, groups: int) -> float:
+    """Least time on the card for one counter build: src, dst and w_alive
+    read once (12 B per edge) and the t*b float counters written once,
+    over HBM bandwidth.  (Where the tables are split over CTA groups the
+    kernel reads the edges ``groups`` times; the bound does not.)"""
+    return (n_edges * 12 + t * b * 4) / HBM_BYTES_PER_S * 1e3
+
+
+def _flat_sketch_index(src, dst, w, p):
+    """The K2 scatter with the hashing done beforehand: int64 flat counter
+    index and float32 value of every (table, endpoint), for the library
+    yardstick (one ``index_add_``)."""
+    import torch
+
+    from repro_torch.core.countsketch import _hash_bucket, _hash_sign
+
+    flats, vals = [], []
+    for x in (src, dst):
+        rows = torch.arange(p.n_tables, dtype=torch.int64, device=x.device)[:, None]
+        flats.append((_hash_bucket(p, x).long() + rows * p.n_buckets).reshape(-1))
+        vals.append((_hash_sign(p, x) * w[None, :]).reshape(-1))
+    return torch.cat(flats), torch.cat(vals)
+
+
+# K2's float error limit, relative to each counter's absolute mass: it lies
+# between K2's reading and that of a bf16-weight control (PERF.md has both
+# readings), and the control must fail it.
+MASS_TOL = 3e-6
+
+
+def check_float_counters(what: str, src, dst, w, p):
+    """K2 on float weights against the plain version in float64.
+
+    A counter sums ``sign*w`` terms of both signs: at livejournal_md, hubs
+    of opposite sign (terms of 10^5 cancelling to 10^2), and at b=128
+    some 15k terms a counter, so any f32 order of the sum, the plain
+    version's own ``index_add_`` included, can stray past 1e-4 of the
+    RESULT.  The error is held instead to ``MASS_TOL`` of the counter's
+    absolute mass ``1 + sum(|sign*w|)`` (what a reassociated sum's error
+    scales with).  A control, the plain version on bf16-rounded weights,
+    must fail that limit, or the check could not tell a lower-precision
+    kernel from a sound one.  The counters outside plain rtol/atol 1e-4 are
+    counted for the kernel and for the plain version in f32 alike.
+    Returns (max abs err, log fields).
+    """
+    import torch
+
+    from repro_torch.kernels.count_sketch.ops import sketch_edges
+    from repro_torch.kernels.count_sketch.ref import sketch_edges_ref
+
+    want = sketch_edges_ref(src, dst, w.double(), p)
+    err = (sketch_edges(src, dst, w, p).double() - want).abs()
+    err_plain = (sketch_edges_ref(src, dst, w, p).double() - want).abs()
+    flat, vals = _flat_sketch_index(src, dst, w, p)
+    mass = 1 + torch.zeros(p.n_tables * p.n_buckets, dtype=torch.float64, device=w.device
+                           ).index_add_(0, flat, vals.double().abs()).view(p.n_tables, p.n_buckets)
+    del flat, vals
+    over_mass = (err / mass).max().item()
+    control = ((sketch_edges_ref(src, dst, w.bfloat16().float(), p).double() - want).abs()
+               / mass).max().item()
+    if over_mass > MASS_TOL:
+        raise AssertionError(f"{what}: error {over_mass} of the counters' absolute mass, "
+                             f"past {MASS_TOL}")
+    if control <= MASS_TOL:
+        raise AssertionError(f"{what}: the bf16-weight control reads {control} of the mass, "
+                             f"within {MASS_TOL}: the limit cannot tell it from K2")
+
+    def outside(e):
+        return int((e > 1e-4 + 1e-4 * want.abs()).sum())
+
+    return err.max().item(), {
+        "tolerance": f"{MASS_TOL} x (1 + counter's abs mass) vs plain in f64",
+        "max_abs_err": err.max().item(), "max_err_over_mass": over_mass,
+        "bf16_control_max_err_over_mass": control,
+        "plain_f32_max_abs_err": err_plain.max().item(),
+        "plain_f32_max_err_over_mass": (err_plain / mass).max().item(),
+        "outside_rtol_1e4_kernel": outside(err), "outside_rtol_1e4_plain_f32": outside(err_plain),
+    }
+
+
+def phase_sketch_kernel(lj) -> dict:
+    """K2 against its plain version on the card: livejournal_md's first
+    pass (unit weights, bitwise), random float weights (see
+    :func:`check_float_counters`), and adversarial streams (bitwise on unit
+    weights; float weights as in (b))."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.api import Problem
+    from repro_torch.core.countsketch import make_sketch_params
+    from repro_torch.kernels.count_sketch.ops import count_sketch_update, plan, sketch_edges
+    from repro_torch.kernels.count_sketch.ref import count_sketch_update_ref, sketch_edges_ref
+
+    prob = Problem.undirected(eps=EPS, backend="sketch")
+    p = make_sketch_params(prob.sketch_tables, prob.sketch_buckets, prob.sketch_seed)
+    e = lj.n_edges_padded
+    w0 = torch.where(lj.mask, lj.weight, 0.0)
+    errs = []
+    # (a) the main path's first pass.
+    got = sketch_edges(lj.src, lj.dst, w0, p)
+    want = sketch_edges_ref(lj.src, lj.dst, w0, p)
+    errs.append(check_equal("livejournal pass0 counters", got, want))
+    log("sketch.check", case="livejournal_pass0", equal="bitwise", edges=e,
+        tables=p.n_tables, buckets=p.n_buckets, max_abs_counter=got.abs().max().item())
+    # (b) random float weights (see check_float_counters for the bound).
+    wf = torch.from_numpy(np.random.default_rng(0).random(e).astype(np.float32)).to(DEV)
+    err_f, info = check_float_counters("livejournal float weights", lj.src, lj.dst, wf, p)
+    errs.append(err_f)
+    log("sketch.check", case="livejournal_float", **info)
+    # (c) adversarial streams: one hub node takes every endpoint; t and b
+    # over the one-window, whole-table and split routes; E a multiple of
+    # no block; every weight zero.
+    rng = np.random.default_rng(1)
+    n_adv = 1_000_003
+    xs = torch.from_numpy(rng.integers(0, lj.n_nodes, n_adv).astype(np.int32)).to(DEV)
+    ys = torch.from_numpy(rng.integers(0, lj.n_nodes, n_adv).astype(np.int32)).to(DEV)
+    hub = torch.full((n_adv,), 7, dtype=torch.int32, device=DEV)
+    ones = torch.ones(n_adv, dtype=torch.float32, device=DEV)
+    wr = torch.from_numpy(rng.random(n_adv).astype(np.float32)).to(DEV)
+    for t in (1, 5, 8):
+        for b in (128, 8192, 32768):
+            q = make_sketch_params(t, b, seed=t)
+            errs.append(check_equal(f"t{t} b{b}", sketch_edges(xs, ys, ones, q),
+                                    sketch_edges_ref(xs, ys, ones, q)))
+            errs.append(check_equal(f"hub t{t} b{b}", sketch_edges(hub, ys, ones, q),
+                                    sketch_edges_ref(hub, ys, ones, q)))
+            errs.append(check_equal(f"one array t{t} b{b}", count_sketch_update(hub, ones, q),
+                                    count_sketch_update_ref(hub, ones, q)))
+            err_q, info = check_float_counters(f"float t{t} b{b}", xs, ys, wr, q)
+            errs.append(err_q)
+            log("sketch.check", case=f"adversarial_t{t}_b{b}", equal="bitwise (unit weights)",
+                edges=n_adv, window_groups=plan(t, b)[1], float_max_abs_err=err_q,
+                float_max_err_over_mass=info["max_err_over_mass"],
+                float_bf16_control_over_mass=info["bf16_control_max_err_over_mass"],
+                float_outside_rtol_1e4=info["outside_rtol_1e4_kernel"],
+                float_plain_f32_outside_rtol_1e4=info["outside_rtol_1e4_plain_f32"])
+    zero = sketch_edges(xs, ys, torch.zeros_like(ones), p)
+    if zero.any() or torch.signbit(zero).any():
+        raise AssertionError("all-zero weights left a counter other than +0.0")
+    log("sketch.check", case="all_zero_weights", equal="all counters +0.0")
+    torch.cuda.synchronize()
+
+    # Timing at the main path's shapes.
+    ms = time_ms(lambda: sketch_edges(lj.src, lj.dst, w0, p))
+    plain_ms = time_ms(lambda: sketch_edges_ref(lj.src, lj.dst, w0, p), n=5, warmup=1)
+    flat, vals = _flat_sketch_index(lj.src, lj.dst, w0, p)
+    library_ms = time_ms(lambda: torch.zeros(p.n_tables * p.n_buckets, device=DEV)
+                         .index_add_(0, flat, vals))
+    del flat, vals
+    # The edge list is sorted by its lower endpoint, so a warp's 32 edges
+    # mostly share src and their shared-memory adds hit one counter per
+    # table.  The same edges in a random order measure what that costs.
+    perm = torch.randperm(e, generator=torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    ps, pd, pw = lj.src[perm], lj.dst[perm], w0[perm]
+    check_equal("shuffled edge order", sketch_edges(ps, pd, pw, p), got)
+    shuffled_ms = time_ms(lambda: sketch_edges(ps, pd, pw, p))
+    del perm, ps, pd, pw
+    window, groups = plan(p.n_tables, p.n_buckets)
+    bound_ms = sketch_bound_ms(e, p.n_tables, p.n_buckets, groups)
+    log("sketch.time", kernel_ms=ms, kernel_ms_edges_shuffled=shuffled_ms, plain_ms=plain_ms,
+        library_ms_scatter_only=library_ms, bound_us=bound_ms * 1e3,
+        roofline_share=bound_ms / ms, window=window, groups=groups)
+    return {
+        "name": "count_sketch_update",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/count_sketch/csrc/count_sketch.cu",
+        "replaces": "src/repro/kernels/count_sketch/kernel.py:69",
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": library_ms,
+    }
+
+
+def _peak_run(fn):
+    """Runs ``fn()`` to the end on the card: (result, wall ms, host syncs,
+    peak device MB above what was allocated before)."""
+    import torch
+
+    from repro_torch import hostsync
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    hostsync.read.count = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return out, wall, hostsync.read.count, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def phase_livejournal(lj) -> dict:
+    """The ``backend='auto'`` query at LiveJournal scale (asked for: the
+    default backend is 'exact').  ``'auto'`` resolves to the Count-Sketch
+    (4.84M nodes > 1M), every pass builds its counters through K2, and the
+    answer equals the same peel over the plain counters bit for bit.  Also
+    the exact backend, for the density ratio."""
+    import torch
+
+    from repro_torch.core import Problem, solve
+    from repro_torch.core.countsketch import (
+        _estimates, _query_index, make_sketch_params, median_over_tables,
+    )
+    from repro_torch.core.engine import FnBackend, UndirectedThreshold, run_peel
+    from repro_torch.kernels.count_sketch import ops as cs_ops
+    from repro_torch.kernels.count_sketch.ref import sketch_edges_ref
+
+    prob = Problem.undirected(eps=EPS, backend="auto", track_history=True)
+    cs_ops.count_sketch_update.launches = 0
+    res, wall, syncs, peak = _peak_run(lambda: solve(lj, prob))
+    launches = cs_ops.count_sketch_update.launches
+    if res.provenance.backend != "sketch" or res.provenance.compaction != "off":
+        raise AssertionError(f"auto resolved to {res.provenance}")
+    if launches != res.passes:
+        raise AssertionError(f"K2 launches {launches} != passes {res.passes}")
+    log("livejournal", backend="auto->sketch", wall_ms=wall, passes=res.passes,
+        host_syncs=syncs, kernel_launches=launches, peak_above_graph_mb=peak,
+        peak_device_mb=torch.cuda.max_memory_allocated() / 2**20,
+        rho=float(res.best_density), size=int(res.best_size))
+
+    # The same peel over the plain counters.
+    p = make_sketch_params(prob.sketch_tables, prob.sketch_buckets, prob.sketch_seed)
+    index = _query_index(p, torch.arange(lj.n_nodes, dtype=torch.int32, device=DEV))
+
+    def plain_degrees(edges, w_alive):
+        counters = sketch_edges_ref(edges.src, edges.dst, w_alive, p)
+        return median_over_tables(_estimates(counters, *index))
+
+    mp = prob.resolved_max_passes(lj.n_nodes)
+    before = cs_ops.count_sketch_update.launches
+    plain = run_peel(lj, UndirectedThreshold(EPS), FnBackend(plain_degrees), mp,
+                     track_history=True)
+    if cs_ops.count_sketch_update.launches != before:
+        raise AssertionError("the plain-counter peel launched K2")
+    _same_answer("livejournal sketch (K2) vs plain counters", res, plain)
+    log("livejournal", equal="K2 solve == plain-counter solve bitwise "
+        "(sets, density, passes, history)", passes=plain.passes)
+
+    exact, wall_e, syncs_e, peak_e = _peak_run(
+        lambda: solve(lj, Problem.undirected(eps=EPS, backend="exact", track_history=True)))
+    log("livejournal", backend="exact", wall_ms=wall_e, passes=exact.passes,
+        segments=len(exact.extras["compaction"]["segments"]), host_syncs=syncs_e,
+        peak_above_graph_mb=peak_e, rho=float(exact.best_density),
+        size=int(exact.best_size),
+        sketch_over_exact_density=float(res.best_density) / float(exact.best_density))
+    return {"launches": launches}
+
+
+# -- K3 and the turnstile path (flickr_sm churn) ------------------------------
+
+
+def l0_bound_ms(n_rows: int, n_cells_touched: int) -> float:
+    """Least time on the card for one in-place sketch update: 12 B per row
+    read (src, dst, sgn), plus one read and one write of the 16 B (four
+    int32 fields) of each distinct cell the batch touches, over HBM
+    bandwidth.  The 4*d atomics of a row that land on a cell already
+    touched resolve in L2 and move no further DRAM bytes."""
+    return (n_rows * 12 + n_cells_touched * 16 * 2) / HBM_BYTES_PER_S * 1e3
+
+
+def _l0_plain(src, dst, sgn, p):
+    from repro_torch.kernels.l0_sampler.ops import canonicalize_edges
+    from repro_torch.kernels.l0_sampler.ref import l0_delta_ref
+
+    return l0_delta_ref(*canonicalize_edges(src, dst, sgn), p)
+
+
+def phase_l0_kernel(flickr) -> dict:
+    """K3 against its plain version on the card, all bitwise: a 2^20-row
+    batch of flickr_sm's edges at the turnstile defaults (L=32, d=3,
+    C=16384), rows with sign 0 and self-loops, sums that wrap mod 2^32,
+    and L in {1, 32} x C in {256, 16384}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import hashing
+    from repro_torch.kernels.l0_sampler.ops import (
+        canonicalize_edges, edge_cells, edge_fingerprint, edge_level, l0_delta,
+        l0_sketch_shape, l0_update, make_l0_params,
+    )
+
+    rows = TURNSTILE_BATCH
+    src, dst = flickr.src[:rows].contiguous(), flickr.dst[:rows].contiguous()
+    ones = torch.ones(rows, dtype=torch.int32, device=DEV)
+    p = make_l0_params(n_levels=32, n_cells=1 << 14, n_tables=3, seed=0)
+    errs = [check_equal("flickr batch", l0_delta(src, dst, ones, p), _l0_plain(src, dst, ones, p))]
+    log("l0.check", case="flickr_batch_2^20", equal="bitwise", rows=rows)
+    rng = np.random.default_rng(2)
+    sgn = torch.from_numpy(rng.choice(np.array([1, -1, 0], np.int32), rows)).to(DEV)
+    loops = dst.clone()
+    loops[::3] = src[::3]  # a third of the rows are self-loops
+    errs.append(check_equal("sign 0 and self-loops", l0_delta(src, loops, sgn, p),
+                            _l0_plain(src, loops, sgn, p)))
+    log("l0.check", case="sign0_and_self_loops", equal="bitwise", rows=rows)
+    big_u = torch.full((rows,), 2**31 - 9, dtype=torch.int32, device=DEV)
+    big_v = torch.full((rows,), 2**31 - 2, dtype=torch.int32, device=DEV)
+    got = l0_delta(big_u, big_v, ones, p)
+    errs.append(check_equal("wrapping sums", got, _l0_plain(big_u, big_v, ones, p)))
+    if not (got < 0).any():
+        raise AssertionError("the wrapping case did not wrap")
+    log("l0.check", case="wrapping_sums", equal="bitwise", rows=rows)
+    for L in (1, 32):
+        for C in (256, 1 << 14):
+            q = make_l0_params(n_levels=L, n_cells=C, n_tables=3, seed=L + C)
+            errs.append(check_equal(f"L{L} C{C}", l0_delta(src, loops, sgn, q),
+                                    _l0_plain(src, loops, sgn, q)))
+            log("l0.check", case=f"L{L}_C{C}", equal="bitwise", rows=rows)
+    torch.cuda.synchronize()
+
+    # Timing: the main path's in-place update of one 2^20-row batch.
+    tables = torch.zeros(l0_sketch_shape(p), dtype=torch.int32, device=DEV)
+    ms = time_ms(lambda: l0_update(tables, src, dst, ones, p))
+    plain_ms = time_ms(lambda: _l0_plain(src, dst, ones, p), n=10, warmup=1)
+    # The library yardstick: the scatter alone, over precomputed indices.
+    d, C = p.n_tables, p.n_cells
+    lvl, cells = edge_level(p, src, dst).long(), edge_cells(p, src, dst).long()
+    flat = (lvl[None, :] * (d * C) + torch.arange(d, device=DEV)[:, None] * C + cells).reshape(-1)
+    fp = hashing.to_i32(edge_fingerprint(p, src, dst))
+    vals = torch.stack([ones, ones * src, ones * dst, fp], dim=-1).repeat(d, 1)
+    flat_tables = tables.view(-1, 4)
+    library_ms = time_ms(lambda: flat_tables.index_add_(0, flat, vals))
+    # The cells this batch touches: (level, table, cell) of every row
+    # with a non-zero sign after canonicalization.
+    u, v, s = canonicalize_edges(src, dst, ones)
+    live = s != 0
+    u, v = u[live], v[live]
+    touched = torch.unique(
+        edge_level(p, u, v).long()[None, :] * (d * C)
+        + torch.arange(d, device=DEV)[:, None] * C + edge_cells(p, u, v).long()
+    ).numel()
+    bound_ms = l0_bound_ms(rows, touched)
+    log("l0.time", kernel_ms=ms, plain_ms=plain_ms, library_ms_scatter_only=library_ms,
+        bound_us=bound_ms * 1e3, roofline_share=bound_ms / ms, rows=rows,
+        nonzero_rows=int(live.sum().item()), cells_touched=touched,
+        cells_in_table=p.n_levels * d * C)
+    return {
+        "name": "l0_delta",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/l0_sampler/csrc/l0_sampler.cu",
+        "replaces": "src/repro/kernels/l0_sampler/kernel.py:104",
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": library_ms,
+    }
+
+
+def _sample_solve_cpu(edges, n_nodes, prob):
+    """The port's insert-mode solve of a recovered sample on the CPU (the
+    plain versions), built by the same helper as ``TurnstileDensest.query``."""
+    from repro_torch.core import solve
+    from repro_torch.core.turnstile import sample_edgelist
+
+    sample, _ = sample_edgelist(edges, n_nodes, "cpu")
+    return solve(sample, dataclasses.replace(prob, stream_mode="insert", compaction="off",
+                                             substrate="jit"))
+
+
+def phase_turnstile(flickr) -> dict:
+    """A churn stream over flickr_sm: its 7,065,860 edges inserted in
+    batches of 2^20 (7 launches, the last padded), a seeded 10% deleted in
+    one batch, then ``query()`` with the sample peel on K1."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Problem
+    from repro_torch.core.turnstile import TurnstileDensest
+    from repro_torch.graph.edgelist import apply_updates
+    from repro_torch.kernels.l0_sampler import ops as l0_ops
+    from repro_torch.kernels.l0_sampler.ops import add_wrapped
+    from repro_torch.kernels.peel_degree.ops import tiled_degrees
+
+    m = flickr.n_edges_padded
+    rng = np.random.default_rng(0)
+    del_idx = torch.from_numpy(np.sort(rng.choice(m, size=m // 10, replace=False))).to(DEV)
+    dels = (flickr.src[del_idx].contiguous(), flickr.dst[del_idx].contiguous())
+    prob = Problem.undirected(eps=EPS, stream_mode="turnstile", backend="pallas",
+                              track_history=True)
+
+    def stream():
+        td = TurnstileDensest(flickr.n_nodes, prob, device=DEV)
+        for i in range(0, m, TURNSTILE_BATCH):
+            td.apply(insert_edges=(flickr.src[i:i + TURNSTILE_BATCH],
+                                   flickr.dst[i:i + TURNSTILE_BATCH]))
+        td.apply(delete_edges=dels)
+        return td
+
+    l0_ops.l0_delta.launches = 0
+    tiled_degrees.launches = 0
+    td, apply_ms, _, peak = _peak_run(stream)
+    updates = td.sketch.updates_applied
+    t0 = time.perf_counter()
+    edges, level, info = td.sketch.recover()
+    recover_ms = (time.perf_counter() - t0) * 1e3
+    res, query_ms, syncs, _ = _peak_run(td.query)
+    l0_launches, k1_launches = l0_ops.l0_delta.launches, tiled_degrees.launches
+    n_batches = -(-m // TURNSTILE_BATCH) + 1  # the inserts, then one delete batch
+    if not l0_launches == td.sketch.batches_applied == n_batches:
+        raise AssertionError(f"K3 launches {l0_launches} for {td.sketch.batches_applied} batches")
+    if k1_launches != res.passes or k1_launches == 0:
+        raise AssertionError(f"K1 launches {k1_launches} for {res.passes} sample passes")
+    log("turnstile", batches=td.sketch.batches_applied, updates=updates,
+        apply_ms=apply_ms, updates_per_s=updates / (apply_ms / 1e3),
+        peak_above_graph_mb=peak, k3_launches=l0_launches)
+    log("turnstile", query_ms=query_ms, recover_ms=recover_ms,
+        peel_ms=query_ms - recover_ms, level=level, sample_edges=len(edges),
+        decode_rounds=info["decode_rounds"], passes=res.passes, k1_launches=k1_launches,
+        host_syncs=syncs, rho=float(res.best_density), size=int(res.best_size))
+
+    # The sketch equals the plain version applied to the same batches
+    # (padding rows carry sign 0 and add nothing).
+    plain = torch.zeros_like(td.sketch.tables)
+    p = td.sketch.params
+    for i in range(0, m, TURNSTILE_BATCH):
+        s, d = flickr.src[i:i + TURNSTILE_BATCH], flickr.dst[i:i + TURNSTILE_BATCH]
+        plain = add_wrapped(plain, _l0_plain(s, d, torch.ones_like(s), p))
+    plain = add_wrapped(plain, _l0_plain(*dels, -torch.ones_like(dels[0]), p))
+    check_equal("turnstile sketch vs plain", td.sketch.tables, plain)
+    # Decode never fabricates: every recovered edge is live in the exact
+    # host result of the same stream.
+    final, stats = apply_updates(flickr, deletes=torch.stack(dels, 1).cpu().numpy())
+    n = flickr.n_nodes
+    fs, fd = final.src.cpu().numpy().astype(np.int64), final.dst.cpu().numpy().astype(np.int64)
+    live = np.minimum(fs, fd) * n + np.maximum(fs, fd)
+    keys = edges[:, 0].astype(np.int64) * n + edges[:, 1]  # recovered edges are u < v
+    if not np.isin(keys, live).all():
+        raise AssertionError(f"{int((~np.isin(keys, live)).sum())} recovered edges are not live")
+    # The query equals the insert-mode solve of the recovered sample on the
+    # CPU.
+    want = _sample_solve_cpu(edges, n, td.problem)
+    scale = float(2**level)
+    for f in ("best_alive", "best_size", "alive", "history_n"):
+        if not torch.equal(getattr(res, f).cpu(), getattr(want, f).cpu()):
+            raise AssertionError(f"turnstile query {f} != the sample's CPU solve")
+    for f in ("best_density", "history_m", "history_rho"):
+        if not torch.equal(getattr(res, f).cpu(), (getattr(want, f) * scale).cpu()):
+            raise AssertionError(f"turnstile query {f} != the sample's CPU solve x 2^level")
+    log("turnstile", equal="sketch == plain bitwise; decode fabricated none of "
+        f"{len(edges)} edges; query == insert-mode CPU solve of the sample",
+        live_edges=len(live), deleted=stats["deleted"])
+    # How far the sampled estimate lies from the exact peel of the live
+    # graph (printed, not asserted: MTVV's envelope needs a sample of
+    # n*polylog/eps^2 edges, and 16,384 is far below that at 976k nodes).
+    from repro_torch.core import solve
+
+    exact = solve(final, Problem.undirected(eps=EPS, compaction="off"))
+    log("turnstile", exact_rho_live_graph=float(exact.best_density),
+        sampled_over_exact=float(res.best_density) / float(exact.best_density),
+        envelope=(1 + EPS) * (2 + 2 * EPS))
+    phase_profile("turnstile_stream_and_query", lambda: stream().query())
+    return {"launches": l0_launches}
+
+
+def phase_golden_sketch_turnstile() -> None:
+    """The quickstart and 200k graphs' ``sketch`` and ``turnstile`` cells
+    on the card meet the JAX golden fixture (answer, counters or sketch
+    tables, recovered edges, level)."""
+    import torch_port_golden as golden
+    from repro_torch.graph import generators
+
+    with open(golden.GOLDEN) as f:
+        fixture = json.load(f)["answers"]
+    for name, (gen, kw) in golden.GRAPHS.items():
+        out = getattr(generators, gen)(**kw, device=DEV)
+        edges = out[0] if isinstance(out, tuple) else out
+        for cell in ("sketch", "turnstile"):
+            got = golden.port_entry(edges, cell)
+            if got != fixture[name][cell]:
+                raise AssertionError(f"{name}/{cell}: {got} != JAX golden {fixture[name][cell]}")
+            shown = ("best_size", "passes", "level")
+            log("golden", graph=name, cell=cell, equal="JAX golden",
+                **{k: got[k] for k in shown if k in got})
 
 
 def main() -> int:
@@ -386,6 +891,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's main path runs on the card",
               file=sys.stderr)
         return 2
+    from repro_torch.core import Problem, solve
     from repro_torch.graph import generators
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -393,18 +899,36 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_environment()
     phase_build()
+    # Path 1: Algorithm 1 on the ladder through K1 (flickr_sm).
     t0 = time.perf_counter()
-    flickr = generators.chung_lu_power_law(**FLICKR, device="cuda")
+    flickr = generators.chung_lu_power_law(**FLICKR, device=DEV)
     log("flickr.graph", nodes=flickr.n_nodes, edges=flickr.n_edges_padded,
         gen_seconds=round(time.perf_counter() - t0, 3))
     k1 = phase_kernel(flickr)
     phase_quickstart()
     k1.update(phase_flickr(flickr))
-    phase_profile(flickr)
+    phase_profile("flickr_pallas", lambda: solve(flickr, Problem.undirected(eps=EPS,
+                                                                            backend="pallas")))
+    # Path 2: the Count-Sketch backend through K2 (livejournal_md).
+    t0 = time.perf_counter()
+    lj = generators.chung_lu_power_law(**LIVEJOURNAL, device=DEV)
+    log("livejournal.graph", nodes=lj.n_nodes, edges=lj.n_edges_padded,
+        gen_seconds=round(time.perf_counter() - t0, 3))
+    k2 = phase_sketch_kernel(lj)
+    k2.update(phase_livejournal(lj))
+    phase_profile("livejournal_auto_sketch", lambda: solve(lj, Problem.undirected(
+        eps=EPS, backend="auto")))
+    del lj
+    torch.cuda.empty_cache()
+    # Path 3: the turnstile runtime through K3 (and K1 on the sample).
+    k3 = phase_l0_kernel(flickr)
+    k3.update(phase_turnstile(flickr))
+    phase_golden_sketch_turnstile()
     log("done", seconds=round(time.perf_counter() - t_start, 3))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: k1[k] for k in keys}]}), flush=True)
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in (k1, k2, k3)]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

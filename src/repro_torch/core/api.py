@@ -8,8 +8,12 @@ the graph's device.  Cells of this slice:
     objective  undirected -> UndirectedThreshold(eps)             (Alg 1, §4.1)
     backend    exact      -> ExactBackend (index_add_)
                pallas     -> the hand-written tiled-degree kernel (kernels/peel_degree)
+               sketch     -> SketchBackend (§5.1), its counters built by the
+                             hand-written Count-Sketch kernel (kernels/count_sketch)
     substrate  jit        -> run_peel's host loop on one device
     compaction off | geometric | twophase  (Solver._run_compacted ladder)
+    stream_mode turnstile -> core/turnstile.py: the ℓ0 sketch (kernels/l0_sampler)
+                             and a peel of its recovered sample
 
 Every other cell resolves and validates exactly as in the reference, then
 raises ``NotImplementedError`` naming the ROADMAP item that ports it.
@@ -78,6 +82,13 @@ class Problem:
       block padding, and dispatch follows only the tensor's device.
     * ``compaction``/``twophase_passes`` — the ladder schedule, as in the
       reference.
+    * ``sketch_tables``/``sketch_buckets``/``sketch_seed`` — the §5.1
+      Count-Sketch geometry of ``backend='sketch'`` (what ``'auto'`` picks
+      above 1M nodes); its counters are built by the hand-written kernel
+      (kernels/count_sketch) on the card.
+    * ``stream_mode``/``sample_edges`` — ``'turnstile'`` solves through the
+      ℓ0-sketch runtime (core/turnstile.py), ``sketch_seed`` seeding its
+      hashes; the sample peel runs ``backend`` exact or pallas.
 
     The remaining fields belong to cells not ported yet; they are validated
     as in the reference.
@@ -270,9 +281,7 @@ class Problem:
 def _require_ported(prob: Problem) -> None:
     """Raises for a resolved cell this slice of the port does not run."""
     missing = None
-    if prob.stream_mode == "turnstile":
-        missing = "stream_mode='turnstile' (ROADMAP Queue 1 item 8)"
-    elif prob.substrate == "local":
+    if prob.substrate == "local":
         missing = "substrate='local' (ROADMAP Queue 1 item 7)"
     elif prob.substrate == "streaming":
         missing = "substrate='streaming' (ROADMAP Queue 1 item 5)"
@@ -280,8 +289,6 @@ def _require_ported(prob: Problem) -> None:
         missing = "substrate='mesh' (ROADMAP Queue 1 item 6)"
     elif prob.objective != "undirected":
         missing = f"objective={prob.objective!r} (ROADMAP Queue 1 item 3)"
-    elif prob.backend == "sketch":
-        missing = "backend='sketch' (ROADMAP Queue 1 item 4)"
     if missing is not None:
         raise NotImplementedError(f"{missing} is not ported to PyTorch yet")
 
@@ -343,9 +350,16 @@ def _policy_for(problem: Problem) -> RemovalPolicy:
 def _backend_for(problem: Problem, edges: EdgeList):
     """Problem -> DegreeBackend for one edge buffer.  The pallas backend
     first buckets the buffer's slots into its ragged tiling (on the
-    buffer's device), once per buffer."""
+    buffer's device), once per buffer; the sketch backend draws its hash
+    parameters from ``sketch_seed``, as the reference does."""
     if problem.backend == "exact":
         return ExactBackend()
+    if problem.backend == "sketch":
+        from repro_torch.core.countsketch import SketchBackend, make_sketch_params
+
+        return SketchBackend(
+            make_sketch_params(problem.sketch_tables, problem.sketch_buckets, problem.sketch_seed)
+        )
     if problem.backend == "pallas":
         from repro_torch.kernels.peel_degree.ops import (
             degree_backend_from_tiling,
@@ -370,6 +384,8 @@ class Solver:
             raise TypeError(f"solve() takes an EdgeList graph, got {type(graph).__name__}")
         prob = problem.resolve(graph.n_nodes)
         _require_ported(prob)
+        if prob.stream_mode == "turnstile":
+            return self._solve_turnstile(graph, prob)
         n = graph.n_nodes
         mp = prob.resolved_max_passes(n)
         if prob.compaction in ("geometric", "twophase"):
@@ -515,6 +531,25 @@ class Solver:
             "host_round_trips": len(segments),
         }
         return outcome, ladder
+
+    def _solve_turnstile(self, graph: EdgeList, prob: Problem) -> DenseSubgraphResult:
+        """One-shot turnstile solve, as the reference lowers
+        ``Problem(stream_mode='turnstile')``: a
+        :class:`~repro_torch.core.turnstile.TurnstileDensest` on the
+        graph's device takes every real edge as one insert batch and
+        answers one query."""
+        from repro_torch.core.turnstile import TurnstileDensest
+
+        if graph.directed:
+            raise ValueError("stream_mode='turnstile' needs an undirected graph")
+        if not hostsync.read(torch.all(graph.weight[graph.mask] == 1.0)):
+            raise ValueError(
+                "stream_mode='turnstile' streams are unweighted edge SETS "
+                "(the ℓ0 sample has no weight field); got non-unit weights"
+            )
+        td = TurnstileDensest(graph.n_nodes, prob, solver=self, device=graph.device)
+        td.apply(insert_edges=(graph.src[graph.mask], graph.dst[graph.mask]))
+        return td.query()
 
     def _wrap(
         self,

@@ -1,9 +1,13 @@
 from repro_torch.graph.edgelist import (
     EdgeList,
+    apply_updates,
     dedup_edges,
     from_numpy,
     from_reference,
     resolve_device,
 )
 
-__all__ = ["EdgeList", "dedup_edges", "from_numpy", "from_reference", "resolve_device"]
+__all__ = [
+    "EdgeList", "apply_updates", "dedup_edges", "from_numpy", "from_reference",
+    "resolve_device",
+]

@@ -128,6 +128,73 @@ def from_reference(
     )
 
 
+def apply_updates(
+    edges: EdgeList,
+    inserts: Optional[np.ndarray] = None,
+    deletes: Optional[np.ndarray] = None,
+) -> Tuple[EdgeList, dict]:
+    """Host-side exact reference for one turnstile update batch (the
+    reference's ``apply_updates``, the same semantics and stats).
+
+    Applies ``deletes`` then ``inserts`` to the undirected edge SET of
+    ``edges`` and returns ``(new_edges, stats)`` on ``edges.device``:
+    surviving edges keep their stream order, inserted edges are appended in
+    batch order with weight 1.0, and the result is unpadded.
+
+    * endpoint order is ignored for matching;
+    * deleting an edge that is not live is a no-op, counted in
+      ``stats['missing_deletes']``;
+    * inserting a live edge is a no-op, counted in ``stats['dup_inserts']``;
+    * duplicates within one batch collapse to the first, counted the same;
+    * a batch that inserts and deletes the same edge raises.
+
+    ``inserts``/``deletes`` are (k, 2) int arrays (or None).
+    """
+    ins = np.asarray(inserts if inserts is not None else np.zeros((0, 2)), np.int64)
+    del_ = np.asarray(deletes if deletes is not None else np.zeros((0, 2)), np.int64)
+    if ins.ndim != 2 or ins.shape[1] != 2 or del_.ndim != 2 or del_.shape[1] != 2:
+        raise ValueError("inserts/deletes must be (k, 2) edge arrays")
+    if edges.directed:
+        raise ValueError("apply_updates models undirected turnstile streams")
+    mask = edges.mask.cpu().numpy()
+    src = edges.src.cpu().numpy().astype(np.int64)[mask]
+    dst = edges.dst.cpu().numpy().astype(np.int64)[mask]
+    w = edges.weight.cpu().numpy()[mask]
+    n = int(edges.n_nodes)
+
+    def keys(a, b):
+        return np.minimum(a, b) * n + np.maximum(a, b)
+
+    live = keys(src, dst)
+    dk_all = keys(del_[:, 0], del_[:, 1])
+    ik_all = keys(ins[:, 0], ins[:, 1])
+    dk, _ = np.unique(dk_all, return_index=True)
+    ik, i_first = np.unique(ik_all, return_index=True)
+    both = np.intersect1d(dk, ik)
+    if len(both):
+        raise ValueError(
+            "a batch must not insert and delete the same edge (deletes "
+            f"apply first, making the order ambiguous): {len(both)} overlap"
+        )
+    stats = {
+        "dup_inserts": int(len(ik_all) - len(ik)),
+        "missing_deletes": int(len(dk_all) - len(dk)),
+    }
+    hit = np.isin(live, dk)
+    stats["deleted"] = int(hit.sum())
+    stats["missing_deletes"] += int(len(dk) - hit.sum())
+    src, dst, w, live = src[~hit], dst[~hit], w[~hit], live[~hit]
+    fresh = ~np.isin(ik, live)
+    stats["dup_inserts"] += int(len(ik) - fresh.sum())
+    stats["inserted"] = int(fresh.sum())
+    keep = np.sort(i_first[fresh])  # batch order, not key order
+    src = np.concatenate([src, ins[keep, 0]])
+    dst = np.concatenate([dst, ins[keep, 1]])
+    w = np.concatenate([w, np.ones(len(keep), np.float32)])
+    out = from_reference(src, dst, w, np.ones(len(src), bool), n, False, edges.device)
+    return out, stats
+
+
 def dedup_edges(
     src: np.ndarray, dst: np.ndarray, *, directed: bool
 ) -> Tuple[np.ndarray, np.ndarray]:

@@ -2,8 +2,8 @@
 
 Every scalar the host loop needs from the device (the peel loop's
 continuation test, the ladder's survivor counts, a rung's chunk count)
-goes through :func:`read`, so ``read.count`` is the number of host syncs a
-solve made.  ``chip_smoke.py`` resets and reports it.
+goes through :func:`read` (an array through :func:`fetch`), so
+``read.count`` is the number of host syncs a solve made.  ``chip_smoke.py`` resets and reports it.
 """
 
 from __future__ import annotations
@@ -19,3 +19,10 @@ def read(x: torch.Tensor):
 
 
 read.count = 0
+
+
+def fetch(x: torch.Tensor):
+    """``x`` as a numpy array on the host, counted in ``read.count`` like
+    :func:`read` (one device-to-host copy when ``x`` is on the card)."""
+    read.count += 1
+    return x.cpu().numpy()

@@ -21,6 +21,10 @@ import torch
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
+# Headers shared by the kernels (the hash family); on nvcc's include path.
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+# Shared memory one CTA may use on Hopper (dynamic, after the opt-in).
+MAX_SMEM_BYTES = 232_448
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -52,18 +56,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built at first use")
 
 
+def source_digest(source: Path) -> str:
+    """Hash of ``source`` and every shared header in :data:`CSRC_DIR`, so an
+    edit to either gives the library a new name and rebuilds it."""
+    h = hashlib.sha256()
+    for path in [Path(source), *sorted(CSRC_DIR.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    return h.hexdigest()[:16]
+
+
 def load_library(source: Path) -> ctypes.CDLL:
     """Builds ``source`` into ``build/repro_torch/<stem>-<hash>.so`` (the
-    hash is of the source, so an edited file rebuilds) and loads it."""
+    hash covers the source and the shared headers) and loads it."""
     source = Path(source)
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"{source.stem}-{digest}.so"
+    out = BUILD_DIR / f"{source.stem}-{source_digest(source)}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), str(source)],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:

@@ -12,12 +12,10 @@ import torch
 
 from repro_torch.graph.edgelist import EdgeList
 from repro_torch.graph.partition import CHUNK_SLOTS, TiledEdges, bucket_edges_by_tile
-from repro_torch.kernels import load_library, use_kernel
+from repro_torch.kernels import MAX_SMEM_BYTES, load_library, use_kernel
 from repro_torch.kernels.peel_degree.ref import degrees_from_tiled, tiled_degrees_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "peel_degree.cu"
-# Shared memory one CTA may use on Hopper: the histogram is tile_size floats.
-MAX_SMEM_BYTES = 232_448
 
 
 @functools.lru_cache(maxsize=None)

@@ -7,7 +7,8 @@
 * ``solve()`` is bitwise equal to the reference's for unit weights, for
   backend exact/pallas × compaction off/geometric/twophase, including the
   ladder's segment list (the undirected cells of tests/test_api.py's
-  compaction matrix).
+  compaction matrix), for ``backend='sketch'`` and for a one-shot
+  ``stream_mode='turnstile'`` solve.
 """
 
 import dataclasses
@@ -84,8 +85,7 @@ def test_post_init_rejects_like_reference(kw):
 @pytest.mark.parametrize(
     "kw",
     [dict(objective="at_least_k", k=5), dict(objective="directed", c=1.0),
-     dict(backend="sketch"), dict(substrate="streaming"), dict(substrate="local"),
-     dict(stream_mode="turnstile"), dict(substrate="mesh")],
+     dict(substrate="streaming"), dict(substrate="local"), dict(substrate="mesh")],
 )
 def test_unported_cells_raise_not_implemented(kw):
     edges = _port(erdos_renyi(50, avg_deg=4, seed=0))
@@ -136,6 +136,36 @@ def test_solve_bit_identical_to_reference(monkeypatch, graph, backend, compactio
     }
     if graph == "deep" and compaction == "geometric":
         assert len(lad["segments"]) >= 3
+
+
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+@pytest.mark.parametrize("cell", ["sketch", "turnstile"])
+def test_sketch_and_turnstile_solves_bit_identical_to_reference(graph, cell):
+    """The cells of this slice through the front door: ``backend='sketch'``
+    (§5.1) and a one-shot ``stream_mode='turnstile'`` solve (the deep
+    graph's 3,000 edges and the quickstart's 4,500 do not fit 1,024
+    samples, so both decode above level 0)."""
+    make, _ = GRAPHS[graph]
+    edges = make()
+    if cell == "sketch":
+        prob = dict(eps=0.5, backend="sketch", track_history=True, sketch_buckets=1 << 10)
+    else:
+        prob = dict(eps=0.5, stream_mode="turnstile", sample_edges=1 << 10, track_history=True)
+    ref = ref_api.Solver().solve(edges, ref_api.Problem.undirected(**prob))
+    got = api.solve(_port(edges), api.Problem.undirected(**prob))
+    for field in ("best_alive", "best_density", "best_size", "alive",
+                  "history_n", "history_m", "history_rho"):
+        assert _bits(getattr(got, field)) == _bits(getattr(ref, field)), field
+    assert got.passes == int(ref.passes)
+    assert dataclasses.asdict(got.provenance) == dataclasses.asdict(
+        dataclasses.replace(ref.provenance, cache_hit=False)
+    )
+    if cell == "sketch":
+        assert got.extras is None and got.provenance.backend == "sketch"
+        return
+    info, ref_info = dict(got.extras["turnstile"]), dict(ref.extras["turnstile"])
+    np.testing.assert_array_equal(info.pop("sample_nodes"), ref_info.pop("sample_nodes"))
+    assert info == ref_info and info["level"] > 0
 
 
 def test_quickstart_recovers_the_planted_block():

@@ -1,6 +1,7 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+K1 (tiled degrees), K2 (Count-Sketch update) and K3 (l0-sampler update).
 
-These tests need an NVIDIA GPU (the kernel is CUDA C++ and has no CPU
+These tests need an NVIDIA GPU (the kernels are CUDA C++ and have no CPU
 mode) and skip with that reason without one.  They import neither JAX nor
 the JAX package, so they run on a machine with the card and no JAX:
 
@@ -12,8 +13,16 @@ import pytest
 import torch
 
 from repro_torch.core import Problem, solve
+from repro_torch.core.countsketch import make_sketch_params
+from repro_torch.core.turnstile import TurnstileSketch
 from repro_torch.graph import generators
 from repro_torch.graph.partition import TiledEdges, bucket_edges_by_tile
+from repro_torch.kernels.count_sketch.ops import count_sketch_update, sketch_edges
+from repro_torch.kernels.count_sketch.ref import count_sketch_update_ref, sketch_edges_ref
+from repro_torch.kernels.l0_sampler.ops import (
+    add_wrapped, canonicalize_edges, l0_delta, l0_update, make_l0_params,
+)
+from repro_torch.kernels.l0_sampler.ref import l0_delta_ref
 from repro_torch.kernels.peel_degree.ops import tiled_degrees
 from repro_torch.kernels.peel_degree.ref import tiled_degrees_ref
 
@@ -25,7 +34,7 @@ SHAPES = [(100, 400, 32), (1000, 5000, 128), (257, 1000, 64), (64, 50, 64), (20_
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the kernel is CUDA C++ with no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: the kernels are CUDA C++ with no CPU mode")
     return torch.device("cuda")
 
 
@@ -88,3 +97,127 @@ def test_solve_on_card_equals_cpu(cuda, compaction):
                   "history_m", "history_rho"):
             assert torch.equal(getattr(res, f).cpu(), getattr(answers[0], f).cpu()), f
         assert res.passes == answers[0].passes
+
+
+# -- K2: the Count-Sketch update kernel ---------------------------------------
+
+CS_SHAPES = [  # (n_edges, t, b): b=32768 splits the tables over CTA groups,
+    (1000, 3, 256),  # b=100_003 splits one table (and is not a power of two)
+    (4097, 5, 8192),
+    (999, 1, 128),
+    (30_001, 8, 32768),
+    (5_000, 2, 100_003),
+]
+
+
+def _cs_case(n_edges, integer, seed=0, n_nodes=10_000):
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    dst = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    w = (rng.integers(0, 3, n_edges) if integer else rng.random(n_edges)).astype(np.float32)
+    return src, dst, w
+
+
+@pytest.mark.parametrize("n_edges,t,b", CS_SHAPES)
+@pytest.mark.parametrize("integer", [True, False])
+def test_count_sketch_kernel_matches_plain(cuda, n_edges, t, b, integer):
+    p = make_sketch_params(t, b, seed=7)
+    src, dst, w = (torch.from_numpy(a).to(cuda) for a in _cs_case(n_edges, integer))
+    before = count_sketch_update.launches
+    got_one = count_sketch_update(src, w, p)
+    got_two = sketch_edges(src, dst, w, p)
+    torch.cuda.synchronize()
+    assert count_sketch_update.launches == before + 2
+    if integer:
+        assert torch.equal(got_one, count_sketch_update_ref(src, w, p))
+        assert torch.equal(got_two, sketch_edges_ref(src, dst, w, p))
+    else:  # f32 reassociation (atomics add in no fixed order): vs the plain version in f64
+        torch.testing.assert_close(got_one, count_sketch_update_ref(src, w.double(), p).float(),
+                                   rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(got_two, sketch_edges_ref(src, dst, w.double(), p).float(),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_count_sketch_kernel_adversarial(cuda):
+    p = make_sketch_params(5, 8192, seed=1)
+    hub = torch.full((100_003,), 42, dtype=torch.int32, device=cuda)  # one node, every endpoint
+    ones = torch.ones(100_003, dtype=torch.float32, device=cuda)
+    assert torch.equal(sketch_edges(hub, hub, ones, p), sketch_edges_ref(hub, hub, ones, p))
+    zero = torch.zeros_like(ones)  # every edge dead: all counters stay +0.0
+    got = sketch_edges(hub, hub, zero, p)
+    assert torch.equal(got, torch.zeros_like(got)) and not torch.signbit(got).any()
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    got = sketch_edges(empty, empty, torch.zeros(0, device=cuda), p)
+    assert got.shape == (5, 8192) and not got.any()
+
+
+# -- K3: the l0-sampler update kernel -----------------------------------------
+
+L0_SHAPES = [(300, 8, 256), (5000, 32, 16384), (2049, 1, 1000), (70_000, 32, 256)]
+
+
+def _l0_case(n_rows, seed=0, n_nodes=3000):
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, n_nodes, n_rows).astype(np.int32)
+    v = rng.integers(0, n_nodes, n_rows).astype(np.int32)
+    v[::7] = u[::7]  # self-loops
+    s = rng.choice(np.array([1, -1, 0, 3], np.int32), n_rows)
+    return u, v, s
+
+
+@pytest.mark.parametrize("n_rows,n_levels,n_cells", L0_SHAPES)
+def test_l0_kernel_matches_plain(cuda, n_rows, n_levels, n_cells):
+    p = make_l0_params(n_levels=n_levels, n_cells=n_cells, n_tables=3, seed=4)
+    u, v, s = (torch.from_numpy(a).to(cuda) for a in _l0_case(n_rows))
+    before = l0_delta.launches
+    got = l0_delta(u, v, s, p)
+    want = l0_delta_ref(*canonicalize_edges(u, v, s), p)
+    assert torch.equal(got, want)
+    tables = want.clone()
+    assert l0_update(tables, v, u, s, p) is tables
+    torch.cuda.synchronize()
+    assert l0_delta.launches == before + 2
+    assert torch.equal(tables, add_wrapped(want, want))
+
+
+def test_l0_kernel_wraps_mod_2_32(cuda):
+    """Large node ids and repeated rows push every field's sum past 2^31."""
+    p = make_l0_params(n_levels=4, n_cells=256, n_tables=3, seed=0)
+    u = torch.full((4096,), 2**31 - 5, dtype=torch.int32, device=cuda)
+    v = torch.full((4096,), 2**31 - 1, dtype=torch.int32, device=cuda)
+    s = torch.ones(4096, dtype=torch.int32, device=cuda)
+    got = l0_delta(u, v, s, p)
+    assert torch.equal(got, l0_delta_ref(*canonicalize_edges(u, v, s), p))
+    assert (got < 0).any()  # the sums did wrap
+
+
+@pytest.mark.parametrize("stream_mode", ["insert", "turnstile"])
+def test_sketch_and_turnstile_solves_on_card_equal_cpu(cuda, stream_mode):
+    kw = dict(eps=0.5, track_history=True)
+    if stream_mode == "turnstile":
+        kw.update(stream_mode="turnstile", sample_edges=1 << 11, backend="pallas")
+    else:
+        kw.update(backend="sketch")
+    answers = []
+    for device in ("cuda", "cpu"):
+        edges = generators.chung_lu_power_law(20_000, avg_deg=8, seed=3, device=device)
+        answers.append(solve(edges, Problem.undirected(**kw)))
+    got, want = answers
+    for f in ("best_alive", "best_density", "best_size", "alive", "history_n",
+              "history_m", "history_rho"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert got.passes == want.passes
+
+
+def test_turnstile_update_launches_once_per_batch(cuda):
+    """The counterpart of the reference's one-compile-per-bucket test: on
+    the card every applied batch is one K3 launch, whatever its bucket."""
+    sk = TurnstileSketch(2000, 1 << 9, seed=0, device=cuda)
+    rng = np.random.default_rng(0)
+    before = l0_delta.launches
+    for _ in range(4):
+        sk.apply(insert_edges=rng.integers(0, 2000, (500, 2)).astype(np.int32))
+    assert l0_delta.launches == before + 4
+    assert sk.batches_applied == 4 and sk.updates_applied == 2000
+    sk.apply(insert_edges=rng.integers(0, 2000, (3000, 2)).astype(np.int32))
+    assert l0_delta.launches == before + 5

@@ -1,6 +1,7 @@
 """The JAX golden fixture for the card stays true: every entry of
-tests/fixtures/torch_port/golden.json is recomputed with ``repro`` here, and
-the port's CPU answers meet it too (``chip_smoke.py`` holds the port's CUDA
+tests/fixtures/torch_port/golden.json (cells exact, pallas, sketch and
+turnstile, on two graphs) is recomputed with ``repro`` here, and the port's
+CPU answers meet it too (``chip_smoke.py`` holds the port's CUDA
 answers against the same file, on a machine without JAX)."""
 
 import json
@@ -21,7 +22,7 @@ def _load():
 
 
 @pytest.mark.parametrize("name", sorted(golden.GRAPHS))
-@pytest.mark.parametrize("backend", golden.BACKENDS)
+@pytest.mark.parametrize("backend", golden.CELLS)
 def test_golden_fixture_matches_reference(name, backend):
     fixture = _load()
     assert fixture["eps"] == golden.EPS
@@ -30,15 +31,11 @@ def test_golden_fixture_matches_reference(name, backend):
 
 
 @pytest.mark.parametrize("name", sorted(golden.GRAPHS))
-@pytest.mark.parametrize("backend", golden.BACKENDS)
+@pytest.mark.parametrize("backend", golden.CELLS)
 def test_port_cpu_meets_golden(name, backend):
-    from repro_torch.core import Problem, solve
     from repro_torch.graph import generators
 
     gen, kw = golden.GRAPHS[name]
     out = getattr(generators, gen)(**kw, device="cpu")
     edges = out[0] if isinstance(out, tuple) else out
-    res = solve(edges, Problem.undirected(eps=golden.EPS, backend=backend))
-    got = golden.record(res.best_alive.numpy(), res.best_density.numpy(),
-                        res.best_size, res.passes)
-    assert got == _load()["answers"][name][backend]
+    assert golden.port_entry(edges, backend) == _load()["answers"][name][backend]

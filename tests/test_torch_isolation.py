@@ -38,11 +38,32 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+PORT_MODULES = (
+    "repro_torch.core", "repro_torch.core.countsketch", "repro_torch.core.turnstile",
+    "repro_torch.faults", "repro_torch.kernels.hashing",
+    "repro_torch.kernels.peel_degree.ops", "repro_torch.kernels.count_sketch.ops",
+    "repro_torch.kernels.l0_sampler.ops", "repro_torch.kernels.l0_sampler.ref",
+)
+
+
+def test_new_modules_are_scanned():
+    scanned = {str(p.relative_to(REPO)) for p in _port_files()}
+    for mod in PORT_MODULES:
+        path = "src/" + mod.replace(".", "/")
+        assert f"{path}.py" in scanned or f"{path}/__init__.py" in scanned, mod
+
+
 def test_importing_the_port_loads_no_jax():
+    """Importing every module of the port loads neither JAX nor the JAX
+    package, compiles nothing, and leaves the fault hook empty (no plan
+    installed: ``faults.fire`` is a no-op)."""
     code = (
-        "import sys, repro_torch.core, repro_torch.kernels.peel_degree.ops; "
+        "import importlib, sys; "
+        f"mods = [importlib.import_module(m) for m in {PORT_MODULES!r}]; "
+        "from repro_torch import faults; from repro_torch.kernels import BUILD_LOG; "
         "bad = [m for m in ('jax', 'jaxlib', 'repro') if m in sys.modules]; "
-        "print(bad); sys.exit(1 if bad else 0)"
+        "state = (faults.installed(), faults._ACTIVE, BUILD_LOG); "
+        "print(bad, state); sys.exit(1 if bad or state != (None, None, {}) else 0)"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
