@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the port's three CUDA kernels from the sources in this checkout (one
+Builds the port's four CUDA kernels from the sources in this checkout (one
 ``nvcc`` each, all started together), holds each against its plain PyTorch
-version on the card, then drives the port's three paths through the
+version on the card, then drives the port's four paths through the
 entry points a user calls:
 
 * Algorithm 1 on the geometric ladder, ``solve(edges,
@@ -16,12 +16,17 @@ entry points a user calls:
   nodes (K2, the counter update), at LIVEJOURNAL scale (4.84M nodes,
   68.9M edges drawn, Chung-Lu exponent 2.2, seed 0);
 * the turnstile runtime, ``TurnstileDensest`` (K3, the l0-sketch update;
-  K1 again on the sample peel), on a churn stream over the FLICKR graph.
+  K1 again on the sample peel), on a churn stream over the FLICKR graph;
+* the LM path at the full width of llama3.2-3b (28 layers, random weights
+  from a seeded ``torch.Generator``): ``prefill`` of an 8,192-token prompt
+  with ``attn_impl='pallas'`` (K4, flash attention, once per layer)
+  against ``'xla'``, and the ``ServeEngine`` answering 6 requests.
 
 Answers are checked against the exact backend, the plain versions, the
 port on the CPU and the JAX package's golden fixture
-(tests/fixtures/torch_port/golden.json).  Any failed check raises, so the
-exit code is not 0.
+(tests/fixtures/torch_port/golden.json), the LM's against its ``'xla'``
+path, its full forward and the golden fixture's REDUCED-config entries.
+Any failed check raises, so the exit code is not 0.
 
 Output: the torch/CUDA versions and ``nvidia-smi``'s name and power limit
 first; then one line per phase; then, on the line before the last, the
@@ -46,6 +51,8 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "scripts"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
+F32_FLOPS = 67e12  # outside the tensor cores
 EPS = 0.5
 FLICKR = dict(n=976_000, exponent=2.2, avg_deg=2 * 7.6e6 / 976_000, seed=0)
 # src/repro/configs/densest_mapreduce.py SHAPES["livejournal_md"].
@@ -126,14 +133,15 @@ def phase_environment() -> str:
 
 
 def phase_build() -> None:
-    """Builds K1, K2 and K3 from this checkout's sources, one ``nvcc`` per
-    source, all started together."""
+    """Builds K1, K2, K3 and K4 from this checkout's sources, one ``nvcc``
+    per source, all started together."""
     from repro_torch.kernels import BUILD_LOG, load_library
     from repro_torch.kernels.count_sketch import ops as cs_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.l0_sampler import ops as l0_ops
     from repro_torch.kernels.peel_degree import ops as pd_ops
 
-    sources = [pd_ops.SOURCE, cs_ops.SOURCE, l0_ops.SOURCE]
+    sources = [pd_ops.SOURCE, cs_ops.SOURCE, l0_ops.SOURCE, fa_ops.SOURCE]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(load_library, sources))
@@ -884,6 +892,355 @@ def phase_golden_sketch_turnstile() -> None:
                 **{k: got[k] for k in shown if k in got})
 
 
+# -- K4 and the LM path (llama3.2-3b at full width) ---------------------------
+
+
+# K4's shapes: the reference's kernel tests, then the main path's (B=1, an
+# 8,192-token prompt, 24/8 heads, D=128, bf16), a ragged length, and
+# mixtral's window.  (B, S, Hq, Hkv, D, window, dtype)
+FLASH_CASES = [
+    (2, 256, 4, 4, 64, None, "float32"), (1, 256, 8, 2, 64, None, "float32"),
+    (2, 384, 4, 2, 32, 128, "float32"), (1, 300, 2, 1, 64, None, "float32"),
+    (1, 256, 4, 4, 64, None, "bfloat16"),
+    (1, 8192, 24, 8, 128, None, "bfloat16"), (1, 8000, 24, 8, 128, None, "bfloat16"),
+    (1, 8192, 24, 8, 128, 4096, "bfloat16"),
+]
+# K4 against its plain version, two limits.  Elementwise, rtol = atol =
+# the reference tests' own (2e-5 f32, 2e-2 bf16): at the main shape a late
+# row's outputs are ~0.015-0.02, no larger than that atol, so it holds the
+# early rows only.  Per row (one query, one head, D values), the relative
+# L2 error ||got - want|| / ||want||, which is scale-free and holds every
+# row: K4 and the plain version round p to bf16 at other points and then
+# round the output, a few bf16 ulps at most.  Three controls must fail
+# them in every case (PERF.md has the readings on both sides).
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+FLASH_ROW_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
+LM_PROMPT = 8192
+
+
+def flash_pairs(q_positions, kv_positions, window) -> int:
+    """Allowed (query, key) pairs of one head: kpos <= qpos (and kpos >
+    qpos - window), counted from the positions by a search in the sorted
+    keys."""
+    import torch
+
+    kp = torch.sort(kv_positions.long()).values
+    qp = q_positions.long()
+    n = torch.searchsorted(kp, qp, right=True)
+    if window is not None:
+        n = n - torch.searchsorted(kp, qp - window, right=True)
+    return int(n.sum().item())
+
+
+def flash_bound_ms(q, k, pairs: int) -> tuple:
+    """Least time on the card for one K4 call: the larger of its FLOPs
+    (q.k and p.v, 2*D each per allowed pair and query head) over the
+    dtype's peak and its bytes (q, k, v read once, the output written
+    once, the positions) over HBM bandwidth.  Returns (ms, 'operations' or
+    'bytes')."""
+    import torch
+
+    b, sq, hq, d = q.shape
+    flops = 4.0 * d * hq * b * pairs
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + 4 * (sq + k.shape[1])
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def _flash_inputs(b, s, hq, hkv, d, dtype, seed):
+    import torch
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q = torch.randn(b, s, hq, d, generator=g, device=DEV).to(dt)
+    k = torch.randn(b, s, hkv, d, generator=g, device=DEV).to(dt)
+    v = torch.randn(b, s, hkv, d, generator=g, device=DEV).to(dt)
+    return q, k, v, torch.arange(s, dtype=torch.int32, device=DEV)
+
+
+def flash_controls(q, k, v, qpos, kpos, window, want, tile: int) -> dict:
+    """The plain version with three faults a wrong K4 could have: the
+    diagonal dropped from every row's mask (kpos < qpos); the diagonal
+    dropped in the second half of the rows only; one allowed kv tile of
+    ``tile`` keys dropped, the one before the middle query's diagonal, which
+    changes every later row it reaches and none before."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref as ref
+
+    half = q.shape[1] // 2
+    late = want.clone()
+    late[:, half:] = ref(q[:, half:], k, v, qpos[half:], kpos + 1, window=window).float()
+    key = int(torch.searchsorted(kpos.long(), qpos[half:half + 1].long())[0])
+    start = max(0, (key // tile - 1) * tile)
+    kp = kpos.clone()
+    kp[start:start + tile] = 2 ** 30  # a position no query reaches
+    return {
+        "diagonal": ref(q, k, v, qpos, kpos + 1, window=window).float(),
+        "late_diagonal": late,
+        "interior_tile": ref(q, k, v, qpos, kp, window=window).float(),
+    }
+
+
+def flash_errors(got, want, dtype: str) -> dict:
+    """Readings of ``got`` against ``want`` (both float32) at FLASH_TOL and
+    FLASH_ROW_TOL: values outside the elementwise limit, rows outside the
+    row limit, the largest absolute and row-relative errors."""
+    tol, row_tol = FLASH_TOL[dtype], FLASH_ROW_TOL[dtype]
+    err = (got - want).abs()
+    row = (got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+    return dict(outside=int((err > tol + tol * want.abs()).sum()),
+                rows_outside=int((row > row_tol).sum()),
+                max_abs_err=err.max().item(), max_row_rel_err=row.max().item())
+
+
+def phase_flash_kernel() -> dict:
+    """K4 against its plain version on the card, within FLASH_TOL
+    (elementwise) and FLASH_ROW_TOL (per row); in every case three controls
+    (:func:`flash_controls`) must fail those limits.  Then K4's time at
+    S=8192 and 32768 beside its bound, the plain version's (8192) and
+    ``scaled_dot_product_attention``'s."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    errs, failures = [], []
+    for i, (b, s, hq, hkv, d, window, dtype) in enumerate(FLASH_CASES):
+        q, k, v, pos = _flash_inputs(b, s, hq, hkv, d, dtype, seed=i)
+        got = flash_attention(q, k, v, q_positions=pos, kv_positions=pos, window=window).float()
+        want = flash_attention_ref(q, k, v, pos, pos, window=window).float()
+        kernel = flash_errors(got, want, dtype)
+        del got
+        tile = 64 if dtype == "bfloat16" else 32  # K4's kv tile
+        controls = {name: flash_errors(ctrl, want, dtype) for name, ctrl in
+                    flash_controls(q, k, v, pos, pos, window, want, tile).items()}
+        del want
+        case = f"B{b}_S{s}_H{hq}/{hkv}_D{d}_w{window}_{dtype}"
+        log("flash.check", case=case,
+            tolerance=f"rtol=atol={FLASH_TOL[dtype]}, row {FLASH_ROW_TOL[dtype]}", **kernel,
+            controls=controls)
+        if kernel["outside"] or kernel["rows_outside"]:
+            failures.append(f"K4 {case}: {kernel}")
+        for name, c in controls.items():
+            if not (c["outside"] or c["rows_outside"]):
+                failures.append(f"K4 {case}: the {name} control passes both limits")
+        errs.append(kernel["max_abs_err"])
+        del q, k, v
+    if failures:
+        raise AssertionError("; ".join(failures))
+    torch.cuda.empty_cache()
+
+    # Timing at the main path's shape, then at 32,768 tokens.
+    timed = {}
+    hq, hkv, d = 24, 8, 128  # llama3.2-3b
+    for s in (LM_PROMPT, 4 * LM_PROMPT):
+        q, k, v, pos = _flash_inputs(1, s, hq, hkv, d, "bfloat16", seed=s)
+        n = TIMED_LAUNCHES if s == LM_PROMPT else 5
+        ms = time_ms(lambda: flash_attention(q, k, v, q_positions=pos, kv_positions=pos), n=n)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), n=n)
+        plain_ms = None
+        if s == LM_PROMPT:
+            plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, pos, pos), n=5, warmup=1)
+        pairs = flash_pairs(pos, pos, None)
+        bound_ms, bound_by = flash_bound_ms(q, k, pairs)
+        timed[s] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                        bound_by=bound_by)
+        log("flash.time", seq=s, kernel_ms=ms, plain_ms=plain_ms, library_ms_sdpa=library_ms,
+            bound_ms=bound_ms, bound_by=bound_by, allowed_pairs_per_head=pairs,
+            roofline_share=bound_ms / ms, tflops=4.0 * d * hq * pairs / ms / 1e9)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    main = timed[LM_PROMPT]
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
+        "max_abs_err": max(errs),
+        **main,
+        "ms_32768": timed[4 * LM_PROMPT]["ms"],
+        "library_ms_32768": timed[4 * LM_PROMPT]["library_ms"],
+        "bound_ms_32768": timed[4 * LM_PROMPT]["bound_ms"],
+    }
+
+
+def lm_config(**kw):
+    """llama3.2-3b at full width (src/repro/configs/llama3_2_3b.py)."""
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch("llama3.2-3b").config, remat=False, **kw)
+
+
+def _row_rel_err(got, want) -> float:
+    """Largest relative L2 error of one position's K (or V) row, over every
+    layer, position and kv head."""
+    g, w = got.float(), want.float()
+    return ((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)).max().item()
+
+
+# The pallas prefill against the xla prefill of the same weights, bf16.
+# The two attention paths round p to bf16 at other points (the xla path
+# normalizes first), so the residual streams drift apart by bf16 flips;
+# these limits sit between that drift and a control that drops the
+# diagonal from layer 0's mask (PERF.md has the readings).
+LM_CACHE_REL_TOL = 0.1
+LM_LOGITS_TOL = 0.25
+
+
+def phase_lm_prefill(params, tokens) -> dict:
+    """llama3.2-3b, 28 layers, one 8,192-token prompt: ``prefill`` with
+    ``attn_impl='pallas'`` (K4, counted) against ``'xla'``, same weights."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models import transformer
+
+    runs = {}
+    for impl in ("pallas", "xla", "pallas", "xla"):
+        cfg = lm_config(attn_impl=impl)
+        flash_attention.launches = 0
+        (logits, cache, cur_len), wall, _, peak = _peak_run(
+            lambda: transformer.prefill(params, cfg, tokens))
+        launches = flash_attention.launches
+        if launches != (cfg.n_layers if impl == "pallas" else 0):
+            raise AssertionError(f"{impl} prefill: {launches} K4 launches, {cfg.n_layers} layers")
+        log("lm.prefill", impl=impl, run="second" if impl in runs else "first",
+            prompt=tokens.shape[1], wall_ms=wall, peak_above_weights_mb=peak,
+            peak_device_mb=torch.cuda.max_memory_allocated() / 2**20, k4_launches=launches,
+            greedy=int(logits.argmax()))
+        runs.setdefault(impl, (logits, cache, launches))
+        del logits, cache
+    (lp, cp, launches), (lx, cx, _) = runs["pallas"], runs["xla"]
+
+    # The control: the xla prefill with layer 0's mask missing its diagonal.
+    real = transformer.gqa_attention
+    calls = []
+
+    def no_diagonal_in_layer0(q, k, v, *, q_positions, kv_positions, **kw):
+        calls.append(1)
+        if len(calls) == 1:
+            kv_positions = kv_positions + 1  # kpos + 1 <= qpos: kpos < qpos
+        return real(q, k, v, q_positions=q_positions, kv_positions=kv_positions, **kw)
+
+    transformer.gqa_attention = no_diagonal_in_layer0
+    try:
+        lc, cc, _ = transformer.prefill(params, lm_config(attn_impl="xla"), tokens)
+    finally:
+        transformer.gqa_attention = real
+
+    layer0_equal = all(torch.equal(cp[key][0], cx[key][0]) for key in ("k", "v"))
+    cache_err = max(_row_rel_err(cp[key], cx[key]) for key in ("k", "v"))
+    ctrl_cache_err = max(_row_rel_err(cc[key], cx[key]) for key in ("k", "v"))
+    logits_err = (lp - lx).abs().max().item()
+    ctrl_logits_err = (lc - lx).abs().max().item()
+    top2 = torch.topk(lx[0], 2).values
+    margin = (top2[0] - top2[1]).item()
+    same_greedy = int(lp.argmax()) == int(lx.argmax())
+    log("lm.prefill", layer0_cache="bitwise equal" if layer0_equal else "DIFFERS",
+        cache_row_rel_err=cache_err, cache_tol=LM_CACHE_REL_TOL,
+        control_cache_row_rel_err=ctrl_cache_err, logits_max_abs_err=logits_err,
+        logits_tol=LM_LOGITS_TOL, control_logits_max_abs_err=ctrl_logits_err,
+        logits_std=lx.std().item(), greedy_pallas=int(lp.argmax()), greedy_xla=int(lx.argmax()),
+        xla_top1_top2_margin=margin,
+        greedy="equal" if same_greedy else
+        ("DIFFERS" if margin > LM_LOGITS_TOL else "differs at a near tie (margin <= logits_tol)"))
+    if not layer0_equal:
+        raise AssertionError("layer 0's K/V cache differs: it is computed before any attention")
+    if cache_err > LM_CACHE_REL_TOL or logits_err > LM_LOGITS_TOL:
+        raise AssertionError(f"pallas vs xla prefill: cache {cache_err}, logits {logits_err}")
+    if ctrl_cache_err <= LM_CACHE_REL_TOL or ctrl_logits_err <= LM_LOGITS_TOL:
+        raise AssertionError(f"the diagonal-dropped control passes a check (cache "
+                             f"{ctrl_cache_err}, logits {ctrl_logits_err})")
+    # Below LM_LOGITS_TOL the top two logits are a near tie that the allowed
+    # drift may flip; the logits limit is the check there.
+    if not same_greedy and margin > LM_LOGITS_TOL:
+        raise AssertionError(f"the greedy token differs between the pallas and xla prefill "
+                             f"at a top-1/top-2 margin of {margin}")
+    return {"launches": launches}
+
+
+SERVE_SLOTS, SERVE_REQUESTS, SERVE_NEW = 4, 6, 16
+
+
+def phase_lm_serve(params) -> None:
+    """``ServeEngine`` at full width, ``attn_impl='xla'`` (decode has no
+    pallas path, as in the reference), float32 compute: 4 slots, 6
+    requests of 512-2,048-token prompts, 16 new tokens each.  Every request
+    is answered, and one request's tokens equal the argmax chain of full
+    forwards (teacher-forced: one forward over the prompt and the tokens,
+    whose argmax at each new position must be the next token)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.transformer import decode_step, forward
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = lm_config(attn_impl="xla", compute_dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, int(n), dtype=np.int32)
+               for n in rng.integers(512, 2049, SERVE_REQUESTS)]
+    eng = ServeEngine(params, cfg, n_slots=SERVE_SLOTS, max_len=2048 + SERVE_NEW, device=DEV)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new=SERVE_NEW))
+    done, decode_ms = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        admits = bool(eng.queue) and any(r is None for r in eng.slot_req)
+        t1 = time.perf_counter()
+        done.extend(eng.step())  # ends in the sampler's copy to the host
+        if not admits:
+            decode_ms.append((time.perf_counter() - t1) * 1e3)
+    wall = time.perf_counter() - t0
+    tokens = sum(len(r.tokens) for r in done)
+    log("lm.serve", requests=len(done), prompt_lens=[len(p) for p in prompts],
+        generated_tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+        decode_steps=len(decode_ms), median_decode_step_ms=float(np.median(decode_ms)),
+        cache_mb=sum(c.numel() * c.element_size() for c in eng.cache.values()) / 2**20)
+    if len(done) != SERVE_REQUESTS or any(len(r.tokens) != SERVE_NEW for r in done):
+        raise AssertionError(f"{len(done)} of {SERVE_REQUESTS} requests answered")
+    req = min(done, key=lambda r: len(r.prompt))
+    seq = np.concatenate([req.prompt, np.asarray(req.tokens[:-1], np.int32)])
+    logits, _ = forward(params, cfg, torch.as_tensor(seq, device=DEV)[None])
+    new = logits[0, len(req.prompt) - 1:]
+    chain = new.argmax(-1).tolist()
+    top2 = torch.topk(new, 2, dim=-1).values
+    log("lm.serve", rid=req.rid, prompt=len(req.prompt), engine_tokens=req.tokens,
+        forward_argmax_chain=chain,
+        least_top1_top2_margin=(top2[:, 0] - top2[:, 1]).min().item())
+    if chain != req.tokens:
+        raise AssertionError(f"request {req.rid}: engine {req.tokens} != forward chain {chain}")
+    # Where a decode step's time goes (every slot, after the run).
+    cur = torch.as_tensor(eng.cur_len, device=DEV)
+    toks = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int64, device=DEV)
+    phase_profile("llama_decode_step_f32", lambda: decode_step(params, cfg, eng.cache, toks, cur))
+
+
+def phase_lm_golden() -> None:
+    """The REDUCED llama3.2-3b on the card (float32 compute) meets the JAX
+    golden fixture: prefill logits through K4, the engine's greedy tokens,
+    their margins; dense and window=16."""
+    import torch_port_golden as golden
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    with open(golden.GOLDEN) as f:
+        fixture = json.load(f)["lm"]["answers"]
+    for case in golden.LM_CASES:
+        before = flash_attention.launches
+        got = golden.port_lm_entry(case, DEV)
+        bad = golden.lm_mismatch(got, fixture[case])
+        if bad or flash_attention.launches == before:
+            raise AssertionError(f"lm golden {case}: {bad or 'K4 never launched'}")
+        log("golden", lm_case=case, equal=f"JAX golden (tokens; logits rtol=atol="
+            f"{golden.LM_LOGITS_TOL})", tokens=got["tokens"])
+
+
 def main() -> int:
     import torch
 
@@ -924,10 +1281,32 @@ def main() -> int:
     k3 = phase_l0_kernel(flickr)
     k3.update(phase_turnstile(flickr))
     phase_golden_sketch_turnstile()
+    del flickr
+    torch.cuda.empty_cache()
+    # Path 4: the LM at full width through K4 (llama3.2-3b).
+    from repro_torch.models.transformer import init_params, prefill
+
+    k4 = phase_flash_kernel()
+    t0 = time.perf_counter()
+    params = init_params(lm_config(), torch.Generator(device=DEV).manual_seed(0), DEV)
+    tokens = torch.randint(0, lm_config().vocab, (1, LM_PROMPT), device=DEV,
+                           generator=torch.Generator(device=DEV).manual_seed(1))
+    torch.cuda.synchronize()
+    log("lm.model", arch="llama3.2-3b", layers=lm_config().n_layers,
+        params=lm_config().param_count(),
+        weights_mb=torch.cuda.memory_allocated() / 2**20,
+        init_seconds=round(time.perf_counter() - t0, 3))
+    k4.update(phase_lm_prefill(params, tokens))
+    phase_profile("llama_prefill_pallas",
+                  lambda: prefill(params, lm_config(attn_impl="pallas"), tokens))
+    phase_lm_serve(params)
+    del params
+    torch.cuda.empty_cache()
+    phase_lm_golden()
     log("done", seconds=round(time.perf_counter() - t_start, 3))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in (k1, k2, k3)]}),
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in (k1, k2, k3, k4)]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,17 @@ decoded at.  ``chip_smoke.py`` holds the port's CUDA answers against it,
 and ``tests/test_torch_golden.py`` recomputes it, so the file cannot go
 stale.
 
+The ``lm`` section holds the reference LM's answers on the REDUCED
+llama3.2-3b at ``compute_dtype=float32``, with parameters drawn by numpy
+from seed 0 (:func:`lm_params`, the same arrays for both packages), for two
+cases: a dense cache, and ``window=16`` with a 40-token prompt.  Each
+records, per prompt, the last-position logits of ``prefill`` under
+``attn_impl='pallas'`` (the reference's flash kernel in interpret mode) as
+floats, the ``ServeEngine`` greedy tokens under ``attn_impl='xla'``, and
+the top-1/top-2 logit margin of each of those tokens under a full
+``forward`` of the prompt and the tokens before it: a margin far above the
+logits' tolerance means no rounding on the card can flip the token.
+
 The pallas entries come from the reference's tiled-degree kernel K1: the
 quickstart graph through the real ``backend='pallas'`` cell (Pallas in
 interpret mode off-TPU); the 200k graph through K1's jnp oracle
@@ -164,12 +175,151 @@ def port_entry(edges, cell: str) -> dict:
                   res.best_size.cpu(), res.passes, **extra)
 
 
+# -- the LM entries ----------------------------------------------------------
+
+LM_ARCH = "llama3.2-3b"
+LM_SEED = 0
+# Tolerance of the prefill logits, float32 compute: f32 reassociation.
+LM_LOGITS_TOL = 2e-5
+LM_CASES = {
+    "dense": dict(window=None, prompt_lens=(5, 9, 7), max_new=4, n_slots=2, max_len=64),
+    "window16": dict(window=16, prompt_lens=(40, 9), max_new=6, n_slots=2, max_len=64),
+}
+
+
+def lm_params(cfg) -> dict:
+    """The port's ``param_spec`` drawn by ``numpy.random.default_rng(LM_SEED)``
+    in its key order (a truncated normal by redrawing values past 2 std):
+    the same float32 arrays for the JAX package and for the port."""
+    from repro_torch.models.transformer import param_spec
+
+    rng = np.random.default_rng(LM_SEED)
+
+    def draw(node):
+        if isinstance(node, dict):
+            return {k: draw(v) for k, v in node.items()}
+        shape, init = node
+        if init in ("ones", "zeros"):
+            return (np.ones if init == "ones" else np.zeros)(shape, np.float32)
+        kind, std = init
+        x = rng.standard_normal(shape)
+        if kind == "trunc":
+            out = np.abs(x) > 2
+            while out.any():
+                x[out] = rng.standard_normal(int(out.sum()))
+                out = np.abs(x) > 2
+        return (x * std).astype(np.float32)
+
+    return draw(param_spec(cfg))
+
+
+def lm_prompts(case: dict) -> list:
+    rng = np.random.default_rng(1)
+    return [rng.integers(0, 512, n, dtype=np.int32) for n in case["prompt_lens"]]
+
+
+def _margin(logits) -> float:
+    top = np.sort(np.asarray(logits, np.float64))[-2:]
+    return float(top[1] - top[0])
+
+
+def lm_record(prefill_logits, tokens, margins) -> dict:
+    return {
+        "prefill_logits": [[float(x) for x in np.asarray(lg, np.float32)] for lg in prefill_logits],
+        "tokens": [[int(t) for t in toks] for toks in tokens],
+        "margins": [[float(m) for m in ms] for ms in margins],
+    }
+
+
+def reference_lm_entry(case_name: str) -> dict:
+    """One LM entry, computed by the JAX package."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_arch
+    from repro.models.transformer import forward, prefill
+    from repro.serve.engine import Request, ServeEngine
+    from repro_torch.configs import get_arch as port_arch
+
+    case = LM_CASES[case_name]
+    base = dataclasses.replace(get_arch(LM_ARCH).reduced_config, remat=False,
+                               compute_dtype=jnp.float32, window=case["window"])
+    params = jax.tree.map(jnp.asarray, lm_params(port_arch(LM_ARCH).reduced_config))
+    prompts = lm_prompts(case)
+    pallas = dataclasses.replace(base, attn_impl="pallas")
+    pre = [prefill(params, pallas, jnp.asarray(p)[None])[0][0] for p in prompts]
+    eng = ServeEngine(params, base, n_slots=case["n_slots"], max_len=case["max_len"])
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new=case["max_new"]))
+    done = sorted(eng.run_to_completion(), key=lambda r: r.rid)
+    margins = []
+    for p, r in zip(prompts, done):
+        seq = np.concatenate([p, np.asarray(r.tokens[:-1], np.int32)])
+        logits = np.asarray(forward(params, base, jnp.asarray(seq)[None])[0][0])
+        margins.append([_margin(logits[len(p) - 1 + j]) for j in range(len(r.tokens))])
+    return lm_record(pre, [r.tokens for r in done], margins)
+
+
+def port_lm_entry(case_name: str, device) -> dict:
+    """The port's answer for one LM case on ``device``, in the fixture's
+    form (margins from the port's own forward)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import forward, params_from_reference, prefill
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    case = LM_CASES[case_name]
+    base = dataclasses.replace(get_arch(LM_ARCH).reduced_config, remat=False,
+                               compute_dtype=torch.float32, window=case["window"])
+    params = params_from_reference(lm_params(base), base, device)
+    prompts = lm_prompts(case)
+    pallas = dataclasses.replace(base, attn_impl="pallas")
+    pre = [prefill(params, pallas, torch.as_tensor(p, device=device)[None])[0][0].cpu()
+           for p in prompts]
+    eng = ServeEngine(params, base, n_slots=case["n_slots"], max_len=case["max_len"],
+                      device=device)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new=case["max_new"]))
+    done = sorted(eng.run_to_completion(), key=lambda r: r.rid)
+    margins = []
+    for p, r in zip(prompts, done):
+        seq = np.concatenate([p, np.asarray(r.tokens[:-1], np.int32)])
+        logits = forward(params, base, torch.as_tensor(seq, device=device)[None])[0][0].cpu()
+        margins.append([_margin(logits[len(p) - 1 + j].numpy()) for j in range(len(r.tokens))])
+    return lm_record(pre, [r.tokens for r in done], margins)
+
+
+def lm_mismatch(got: dict, want: dict, tol: float = LM_LOGITS_TOL):
+    """None if ``got`` meets ``want`` (tokens equal, prefill logits and
+    margins within ``tol``), else a message naming the first difference."""
+    if got["tokens"] != want["tokens"]:
+        return f"tokens {got['tokens']} != {want['tokens']}"
+    for key in ("prefill_logits", "margins"):
+        for i, (g, w) in enumerate(zip(got[key], want[key])):
+            g, w = np.asarray(g), np.asarray(w)
+            err = np.abs(g - w) - tol * (1 + np.abs(w))
+            if g.shape != w.shape or (err > 0).any():
+                return f"{key}[{i}]: max abs err {np.abs(g - w).max()} past rtol=atol={tol}"
+    return None
+
+
 def compute() -> dict:
     return {
         "eps": EPS,
         "graphs": {name: {"generator": gen, "kwargs": kw} for name, (gen, kw) in GRAPHS.items()},
         "answers": {
             name: {cell: reference_entry(name, cell) for cell in CELLS} for name in GRAPHS
+        },
+        "lm": {
+            "arch": LM_ARCH, "seed": LM_SEED,
+            "cases": {name: {**case, "prompt_lens": list(case["prompt_lens"])}
+                      for name, case in LM_CASES.items()},
+            "answers": {name: reference_lm_entry(name) for name in LM_CASES},
         },
     }
 
@@ -183,6 +333,9 @@ def main() -> int:
         f.write("\n")
     os.replace(tmp, GOLDEN)
     print(json.dumps(golden["answers"], indent=1, sort_keys=True))
+    for name, entry in golden["lm"]["answers"].items():
+        print(name, "tokens", entry["tokens"], "least margin",
+              min(min(m) for m in entry["margins"]))
     return 0
 
 

@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-K1 (tiled degrees), K2 (Count-Sketch update) and K3 (l0-sampler update).
+K1 (tiled degrees), K2 (Count-Sketch update), K3 (l0-sampler update) and
+K4 (flash attention), and the paths through them on the card against the
+port on the CPU.
 
 These tests need an NVIDIA GPU (the kernels are CUDA C++ and have no CPU
 mode) and skip with that reason without one.  They import neither JAX nor
@@ -23,6 +25,8 @@ from repro_torch.kernels.l0_sampler.ops import (
     add_wrapped, canonicalize_edges, l0_delta, l0_update, make_l0_params,
 )
 from repro_torch.kernels.l0_sampler.ref import l0_delta_ref
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.peel_degree.ops import tiled_degrees
 from repro_torch.kernels.peel_degree.ref import tiled_degrees_ref
 
@@ -221,3 +225,127 @@ def test_turnstile_update_launches_once_per_batch(cuda):
     assert sk.batches_applied == 4 and sk.updates_applied == 2000
     sk.apply(insert_edges=rng.integers(0, 2000, (3000, 2)).astype(np.int32))
     assert l0_delta.launches == before + 5
+
+
+# (B, S, Hq, Hkv, D, window, q_from): the reference's test shapes, then
+# head dims 16/24/32 and groups 1-4, ragged lengths, and windows whose
+# first kv tiles are all masked (queries the tail of the keys).
+FLASH_SHAPES = [
+    (2, 256, 4, 4, 64, None, 0), (1, 256, 8, 2, 64, None, 0), (2, 384, 4, 2, 32, 128, 0),
+    (1, 300, 2, 1, 64, None, 0), (1, 200, 6, 2, 24, None, 0), (1, 129, 3, 1, 16, 40, 0),
+    (2, 1000, 8, 2, 128, None, 0), (1, 777, 12, 4, 128, 100, 0), (1, 640, 4, 1, 64, 64, 512),
+]
+# K4 against its plain version: rtol = atol elementwise (the reference
+# tests' own), and a limit on each row's relative L2 error, which holds the
+# long rows whose outputs are smaller than that atol (chip_smoke.py's
+# FLASH_TOL and FLASH_ROW_TOL).
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_ROW_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+
+
+def _flash_outside(got, want, dtype):
+    """(values outside the elementwise limit, rows outside the row limit)."""
+    got, want = got.float(), want.float()
+    tol = FLASH_TOL[dtype]
+    row = (got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+    return (int(((got - want).abs() > tol + tol * want.abs()).sum()),
+            int((row > FLASH_ROW_TOL[dtype]).sum()))
+
+
+def _flash_controls(q, k, v, qpos, kpos, window, want, tile):
+    """The plain version with the diagonal dropped from every row, from the
+    second half of the rows only, and with one allowed kv tile (the one
+    before the middle query's diagonal) dropped."""
+    half = q.shape[1] // 2
+    late = want.clone()
+    late[:, half:] = flash_attention_ref(q[:, half:], k, v, qpos[half:], kpos + 1, window=window)
+    key = int(torch.searchsorted(kpos.long(), qpos[half:half + 1].long())[0])
+    start = max(0, (key // tile - 1) * tile)
+    kp = kpos.clone()
+    kp[start:start + tile] = 2 ** 30
+    return {"diagonal": flash_attention_ref(q, k, v, qpos, kpos + 1, window=window),
+            "late_diagonal": late,
+            "interior_tile": flash_attention_ref(q, k, v, qpos, kp, window=window)}
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,window,q_from", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, b, s, hq, hkv, d, window, q_from, dtype):
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    q = torch.randn(b, s - q_from, hq, d, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(b, s, hkv, d, generator=g, device=cuda).to(dtype) for _ in range(2))
+    kpos = torch.arange(s, dtype=torch.int32, device=cuda) + 7
+    qpos = kpos[q_from:]
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, q_positions=qpos, kv_positions=kpos, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, qpos, kpos, window=window)
+    assert _flash_outside(got, want, dtype) == (0, 0)
+    # Each control must fail one of the limits.
+    tile = 64 if dtype == torch.bfloat16 else 32
+    for name, ctrl in _flash_controls(q, k, v, qpos, kpos, window, want, tile).items():
+        assert _flash_outside(ctrl, want, dtype) != (0, 0), name
+
+
+def test_flash_kernel_many_heads(cuda):
+    """B * Hq = 65,600 (batch * heads) above gridDim.y's 65,535: the grid
+    is linear, so the launch still covers every head."""
+    b, s, hq, hkv, d = 4100, 20, 16, 4, 32
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(b, s, hq, d, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(b, s, hkv, d, generator=g, device=cuda).bfloat16() for _ in range(2))
+    pos = torch.arange(s, dtype=torch.int32, device=cuda)
+    got = flash_attention(q, k, v, q_positions=pos, kv_positions=pos)
+    want = flash_attention_ref(q, k, v, pos, pos)
+    assert _flash_outside(got, want, torch.bfloat16) == (0, 0)
+
+
+def test_flash_kernel_reads_strided_views(cuda):
+    """q/k/v as column slices of one packed [B, S, (Hq + 2 Hkv) D] tensor:
+    read through their strides, no copy."""
+    b, s, hq, hkv, d = 1, 300, 8, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(0)
+    qkv = torch.randn(b, s, (hq + 2 * hkv) * d, generator=g, device=cuda).bfloat16()
+    q = qkv[..., :hq * d].view(b, s, hq, d)
+    k = qkv[..., hq * d:(hq + hkv) * d].view(b, s, hkv, d)
+    v = qkv[..., (hq + hkv) * d:].view(b, s, hkv, d)
+    pos = torch.arange(s, dtype=torch.int32, device=cuda)
+    got = flash_attention(q, k, v, q_positions=pos, kv_positions=pos)
+    want = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), pos, pos)
+    assert _flash_outside(got, want, torch.bfloat16) == (0, 0)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "starcoder2-7b", "qwen2-72b"])
+@pytest.mark.parametrize("window", [None, 16])
+def test_reduced_prefill_on_card_equals_cpu(cuda, arch, window):
+    """The REDUCED config's prefill through K4 (f32 compute) on the card ==
+    the port on the CPU within 2e-5 (f32 reassociation); one K4 launch per
+    layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import params_from_reference, prefill
+    from repro_torch.train.step import init_model_params
+
+    spec = get_arch(arch)
+    cfg = dataclasses.replace(spec.reduced_config, compute_dtype=torch.float32,
+                              attn_impl="pallas", window=window)
+    cpu_params = init_model_params(spec, torch.Generator().manual_seed(0), cfg=cfg, device="cpu")
+    gpu_params = params_from_reference(_numpy_tree(cpu_params), cfg, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 40)))
+    before = flash_attention.launches
+    got, got_cache, _ = prefill(gpu_params, cfg, tokens.to(cuda))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.n_layers
+    want, want_cache, _ = prefill(cpu_params, cfg, tokens)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+    for key in ("k", "v"):  # bf16 cache: the f32 tolerance, then one bf16 ulp
+        torch.testing.assert_close(got_cache[key].cpu().float(), want_cache[key].float(),
+                                   rtol=2.0 ** -7, atol=2e-5)
+
+
+def _numpy_tree(params):
+    if isinstance(params, dict):
+        return {k: _numpy_tree(v) for k, v in params.items()}
+    return params.numpy()

@@ -1,13 +1,15 @@
 """The JAX golden fixture for the card stays true: every entry of
 tests/fixtures/torch_port/golden.json (cells exact, pallas, sketch and
-turnstile, on two graphs) is recomputed with ``repro`` here, and the port's
-CPU answers meet it too (``chip_smoke.py`` holds the port's CUDA
-answers against the same file, on a machine without JAX)."""
+turnstile, on two graphs; the REDUCED llama3.2-3b's prefill logits, greedy
+tokens and margins) is recomputed with ``repro`` here, and the port's CPU
+answers meet it too (``chip_smoke.py`` holds the port's CUDA answers
+against the same file, on a machine without JAX)."""
 
 import json
 import os
 import sys
 
+import numpy as np
 import pytest
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -39,3 +41,26 @@ def test_port_cpu_meets_golden(name, backend):
     out = getattr(generators, gen)(**kw, device="cpu")
     edges = out[0] if isinstance(out, tuple) else out
     assert golden.port_entry(edges, backend) == _load()["answers"][name][backend]
+
+
+# -- the LM entries (REDUCED llama3.2-3b, float32 compute) ---------------------
+
+
+@pytest.mark.parametrize("case", sorted(golden.LM_CASES))
+def test_lm_golden_matches_reference(case):
+    """The JAX package recomputes the entry: tokens equal, floats within
+    1e-6 (XLA's CPU code may sum in another order on another machine)."""
+    fixture = _load()["lm"]
+    assert fixture["arch"] == golden.LM_ARCH and fixture["seed"] == golden.LM_SEED
+    want = fixture["answers"][case]
+    assert golden.lm_mismatch(golden.reference_lm_entry(case), want, tol=1e-6) is None
+    # No tie can flip a token: every greedy token leads the runner-up by
+    # far more than the logits' tolerance.
+    least = min(min(m) for m in want["margins"])
+    assert least > 5 * golden.LM_LOGITS_TOL * (1 + np.abs(want["prefill_logits"]).max())
+
+
+@pytest.mark.parametrize("case", sorted(golden.LM_CASES))
+def test_port_cpu_meets_lm_golden(case):
+    got = golden.port_lm_entry(case, "cpu")
+    assert golden.lm_mismatch(got, _load()["lm"]["answers"][case]) is None

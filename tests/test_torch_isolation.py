@@ -43,6 +43,12 @@ PORT_MODULES = (
     "repro_torch.faults", "repro_torch.kernels.hashing",
     "repro_torch.kernels.peel_degree.ops", "repro_torch.kernels.count_sketch.ops",
     "repro_torch.kernels.l0_sampler.ops", "repro_torch.kernels.l0_sampler.ref",
+    "repro_torch.kernels.flash_attention.ops", "repro_torch.kernels.flash_attention.ref",
+    "repro_torch.models.common", "repro_torch.models.attention",
+    "repro_torch.models.transformer", "repro_torch.serve.engine",
+    "repro_torch.configs", "repro_torch.configs.llama3_2_3b",
+    "repro_torch.configs.starcoder2_7b", "repro_torch.configs.qwen2_72b",
+    "repro_torch.train.step", "repro_torch.launch.serve",
 )
 
 
@@ -81,3 +87,18 @@ def test_entry_points_raise_without_cuda_and_without_device():
         from_numpy(np.array([0]), np.array([1]), 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         generators.planted_dense_subgraph(100, 4, 10, 0.5, seed=0)
+
+
+def test_lm_entry_points_raise_without_cuda_and_without_device():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is the card")
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_arch("llama3.2-3b").reduced_config
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg, torch.Generator())
+    params = init_params(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(params, cfg)
