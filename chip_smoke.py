@@ -134,8 +134,10 @@ def phase_environment() -> str:
 
 def phase_build() -> None:
     """Builds K1, K2, K3 and K4 from this checkout's sources, one ``nvcc``
-    per source, all started together."""
-    from repro_torch.kernels import BUILD_LOG, load_library
+    per source, all started together.  Then K4's kernels as ``ptxas`` built
+    them (registers, spills, shared memory) and the count of ``wgmma``
+    (HGMMA) and TMA load (UTMALDG) instructions in its library's SASS."""
+    from repro_torch.kernels import BUILD_LOG, library_path, load_library
     from repro_torch.kernels.count_sketch import ops as cs_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.l0_sampler import ops as l0_ops
@@ -152,6 +154,50 @@ def phase_build() -> None:
             all_builds_wall_seconds=round(wall, 3))
         for line in str(info["ptxas"]).splitlines():
             print(f"  {line}", flush=True)
+    ptxas = str(BUILD_LOG.get(fa_ops.SOURCE.name, {}).get("ptxas", ""))
+    for name, props in _ptxas_kernels(ptxas).items():
+        log("build.k4", kernel=name, **props)
+    sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(library_path(fa_ops.SOURCE))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "MUFU.EX2", "HMMA")}
+    log("build.k4", sass_instructions=counts, bf16_dynamic_smem_bytes={
+        dp: fa_ops.bf16_smem_bytes(dp) for dp in (64, 128)})
+    if not (counts["HGMMA"] and counts["UTMALDG"]):
+        raise AssertionError(f"K4's library has no wgmma or no TMA load: {counts}")
+
+
+def _cuda_tool(name: str) -> str:
+    import shutil
+
+    return shutil.which(name) or f"/usr/local/cuda/bin/{name}"
+
+
+def _ptxas_kernels(ptxas: str) -> dict:
+    """{kernel: {registers, spill_stores, spill_loads, static_smem}} from
+    ``ptxas -v`` output, by the demangled-enough kernel name."""
+    import re
+
+    out, name = {}, None
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            raw = m.group(1)
+            kern = re.search(r"(flash_fwd_bf16|flash_fwd_f32|flash_plan)(?:ILi(\d+)E)?", raw)
+            name = raw if kern is None else kern.group(1) + (
+                f"<{kern.group(2)}>" if kern.group(2) else "")
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def _adversarial_cases(dev):
@@ -896,14 +942,18 @@ def phase_golden_sketch_turnstile() -> None:
 
 
 # K4's shapes: the reference's kernel tests, then the main path's (B=1, an
-# 8,192-token prompt, 24/8 heads, D=128, bf16), a ragged length, and
-# mixtral's window.  (B, S, Hq, Hkv, D, window, dtype)
+# 8,192-token prompt, 24/8 heads, D=128, bf16), a ragged length, mixtral's
+# window, kv positions that are not an arange (a stride of 3, with a
+# window of 3 * 1,000 positions), and D=64 at a length that is not a
+# multiple of the 128-key tile.  (B, S, Hq, Hkv, D, window, dtype, stride
+# of the positions)
 FLASH_CASES = [
-    (2, 256, 4, 4, 64, None, "float32"), (1, 256, 8, 2, 64, None, "float32"),
-    (2, 384, 4, 2, 32, 128, "float32"), (1, 300, 2, 1, 64, None, "float32"),
-    (1, 256, 4, 4, 64, None, "bfloat16"),
-    (1, 8192, 24, 8, 128, None, "bfloat16"), (1, 8000, 24, 8, 128, None, "bfloat16"),
-    (1, 8192, 24, 8, 128, 4096, "bfloat16"),
+    (2, 256, 4, 4, 64, None, "float32", 1), (1, 256, 8, 2, 64, None, "float32", 1),
+    (2, 384, 4, 2, 32, 128, "float32", 1), (1, 300, 2, 1, 64, None, "float32", 1),
+    (1, 256, 4, 4, 64, None, "bfloat16", 1),
+    (1, 8192, 24, 8, 128, None, "bfloat16", 1), (1, 8000, 24, 8, 128, None, "bfloat16", 1),
+    (1, 8192, 24, 8, 128, 4096, "bfloat16", 1), (1, 4096, 24, 8, 128, 3000, "bfloat16", 3),
+    (2, 1000, 16, 4, 64, None, "bfloat16", 1),
 ]
 # K4 against its plain version, two limits.  Elementwise, rtol = atol =
 # the reference tests' own (2e-5 f32, 2e-2 bf16): at the main shape a late
@@ -948,7 +998,7 @@ def flash_bound_ms(q, k, pairs: int) -> tuple:
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def _flash_inputs(b, s, hq, hkv, d, dtype, seed):
+def _flash_inputs(b, s, hq, hkv, d, dtype, seed, stride=1):
     import torch
 
     g = torch.Generator(device=DEV).manual_seed(seed)
@@ -956,7 +1006,7 @@ def _flash_inputs(b, s, hq, hkv, d, dtype, seed):
     q = torch.randn(b, s, hq, d, generator=g, device=DEV).to(dt)
     k = torch.randn(b, s, hkv, d, generator=g, device=DEV).to(dt)
     v = torch.randn(b, s, hkv, d, generator=g, device=DEV).to(dt)
-    return q, k, v, torch.arange(s, dtype=torch.int32, device=DEV)
+    return q, k, v, stride * torch.arange(s, dtype=torch.int32, device=DEV)
 
 
 def flash_controls(q, k, v, qpos, kpos, window, want, tile: int) -> dict:
@@ -1004,21 +1054,27 @@ def phase_flash_kernel() -> dict:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ops import (
+        KV_TILE_BF16, KV_TILE_F32, Q_BLOCK_BF16, flash_attention, tile_bounds,
+    )
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref, tile_bounds_ref
 
     errs, failures = [], []
-    for i, (b, s, hq, hkv, d, window, dtype) in enumerate(FLASH_CASES):
-        q, k, v, pos = _flash_inputs(b, s, hq, hkv, d, dtype, seed=i)
+    for i, (b, s, hq, hkv, d, window, dtype, stride) in enumerate(FLASH_CASES):
+        q, k, v, pos = _flash_inputs(b, s, hq, hkv, d, dtype, seed=i, stride=stride)
         got = flash_attention(q, k, v, q_positions=pos, kv_positions=pos, window=window).float()
         want = flash_attention_ref(q, k, v, pos, pos, window=window).float()
         kernel = flash_errors(got, want, dtype)
         del got
-        tile = 64 if dtype == "bfloat16" else 32  # K4's kv tile
+        tile = KV_TILE_BF16 if dtype == "bfloat16" else KV_TILE_F32  # K4's kv tile
         controls = {name: flash_errors(ctrl, want, dtype) for name, ctrl in
                     flash_controls(q, k, v, pos, pos, window, want, tile).items()}
         del want
-        case = f"B{b}_S{s}_H{hq}/{hkv}_D{d}_w{window}_{dtype}"
+        if dtype == "bfloat16":  # the plan (K4's first launch) against its plain version
+            qpos = pos[s // 3:]
+            check_equal(f"K4 plan {s}", tile_bounds(qpos, pos).cpu(),
+                        tile_bounds_ref(qpos.cpu(), pos.cpu(), Q_BLOCK_BF16, KV_TILE_BF16))
+        case = f"B{b}_S{s}_H{hq}/{hkv}_D{d}_w{window}_{dtype}_pos{stride}x"
         log("flash.check", case=case,
             tolerance=f"rtol=atol={FLASH_TOL[dtype]}, row {FLASH_ROW_TOL[dtype]}", **kernel,
             controls=controls)
@@ -1046,13 +1102,16 @@ def phase_flash_kernel() -> dict:
         plain_ms = None
         if s == LM_PROMPT:
             plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, pos, pos), n=5, warmup=1)
+        # The plan alone (K4's first launch, inside kernel_ms too).
+        plan_ms = time_ms(lambda: tile_bounds(pos, pos), n=n)
         pairs = flash_pairs(pos, pos, None)
         bound_ms, bound_by = flash_bound_ms(q, k, pairs)
         timed[s] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                         bound_by=bound_by)
         log("flash.time", seq=s, kernel_ms=ms, plain_ms=plain_ms, library_ms_sdpa=library_ms,
             bound_ms=bound_ms, bound_by=bound_by, allowed_pairs_per_head=pairs,
-            roofline_share=bound_ms / ms, tflops=4.0 * d * hq * pairs / ms / 1e9)
+            roofline_share=bound_ms / ms, tflops=4.0 * d * hq * pairs / ms / 1e9,
+            plan_ms=plan_ms, vs_sdpa=ms / library_ms)
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     main = timed[LM_PROMPT]

@@ -65,11 +65,18 @@ def source_digest(source: Path) -> str:
     return h.hexdigest()[:16]
 
 
-def load_library(source: Path) -> ctypes.CDLL:
-    """Builds ``source`` into ``build/repro_torch/<stem>-<hash>.so`` (the
-    hash covers the source and the shared headers) and loads it."""
+def library_path(source: Path) -> Path:
+    """Where :func:`load_library` builds ``source``:
+    ``build/repro_torch/<stem>-<hash>.so`` (the hash covers the source and
+    the shared headers)."""
     source = Path(source)
-    out = BUILD_DIR / f"{source.stem}-{source_digest(source)}.so"
+    return BUILD_DIR / f"{source.stem}-{source_digest(source)}.so"
+
+
+def load_library(source: Path) -> ctypes.CDLL:
+    """Builds ``source`` into :func:`library_path` (once) and loads it."""
+    source = Path(source)
+    out = library_path(source)
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")

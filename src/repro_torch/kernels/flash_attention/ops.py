@@ -5,7 +5,8 @@ grouped-query attention over the model's ``[B, S, H, D]`` tensors.
 :func:`flash_attention` dispatches on the device: the hand-written kernel
 (``csrc/flash_attention.cu``) on a CUDA tensor, the plain version
 (``ref.py``) on a CPU tensor.  ``flash_attention.launches`` counts the
-kernel's launches.  The reference's training wrapper
+kernel's calls (one per call: on bfloat16 the tile plan and the attention
+are two launches on the stream).  The reference's training wrapper
 (``flash_attention_trainable``, K4's forward with the chunked XLA
 backward) comes with the port's training path.
 """
@@ -20,38 +21,90 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import load_library, use_kernel
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref, tile_bounds_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The kernel's tiles: q rows per CTA and keys per kv tile.
+Q_BLOCK_BF16 = KV_TILE_BF16 = 128
+KV_TILE_F32 = 32
+# Codes of the C entry points at or above this are cuTensorMapEncodeTiled's
+# CUresult plus it (the driver refused a tensor map); below, a cudaError_t.
+TENSOR_MAP_ERROR = 1000
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """The built kernel's C entry point, with its argument types declared."""
-    fn = load_library(SOURCE).flash_attention_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+def _library():
+    """The built library, with its entry points' argument types declared."""
+    lib = load_library(SOURCE)
+    lib.flash_attention_fwd.restype = ctypes.c_int
+    lib.flash_attention_fwd.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
         + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
-    return fn
+    lib.flash_attention_plan.restype = ctypes.c_int
+    lib.flash_attention_plan.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    )
+    lib.flash_attention_bf16_smem.restype = ctypes.c_int
+    lib.flash_attention_bf16_smem.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err >= TENSOR_MAP_ERROR:
+        raise RuntimeError(f"{what}: the driver refused a TMA tensor map "
+                           f"(CUresult {err - TENSOR_MAP_ERROR})")
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")
+
+
+def _n_tiles(n: int) -> int:
+    return -(-n // KV_TILE_BF16)
+
+
+def bf16_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one bfloat16 CTA at head dim ``d``."""
+    return _library().flash_attention_bf16_smem(d)
+
+
+def tile_bounds(q_positions: torch.Tensor, kv_positions: torch.Tensor) -> torch.Tensor:
+    """The bfloat16 route's tile plan on its own: int32 (min, max) of each
+    128-key tile's positions, then of each 128-row q block's (the kernel's
+    first launch; ``ref.tile_bounds_ref`` on a CPU tensor)."""
+    if not use_kernel(kv_positions):
+        return tile_bounds_ref(q_positions, kv_positions, Q_BLOCK_BF16, KV_TILE_BF16)
+    qpos = q_positions.to(torch.int32).contiguous()
+    kpos = kv_positions.to(torch.int32).contiguous()
+    sq, sk = qpos.numel(), kpos.numel()
+    bounds = torch.empty(2 * (_n_tiles(sk) + _n_tiles(sq)), dtype=torch.int32,
+                         device=kpos.device)
+    with torch.cuda.device(kpos.device):
+        err = _library().flash_attention_plan(
+            qpos.data_ptr(), kpos.data_ptr(), sq, sk, bounds.data_ptr(),
+            torch.cuda.current_stream(kpos.device).cuda_stream)
+    _raise_on(err, "flash_attention_plan")
+    return bounds
 
 
 def _launch(q, k, v, out, qpos, kpos, window: Optional[int]) -> None:
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    bounds = None
+    if q.dtype == torch.bfloat16:  # the plan's scratch
+        bounds = torch.empty(2 * (_n_tiles(sk) + _n_tiles(sq)), dtype=torch.int32,
+                             device=q.device)
     with torch.cuda.device(q.device):
-        err = _kernel()(
+        err = _library().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            qpos.data_ptr(), kpos.data_ptr(), b, sq, sk, hq, hkv, d, *strides,
+            qpos.data_ptr(), kpos.data_ptr(), None if bounds is None else bounds.data_ptr(),
+            b, sq, sk, hq, hkv, d, *strides,
             0 if window is None else int(window), 1.0 / (d ** 0.5), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
+    _raise_on(err, "flash_attention_fwd")
     flash_attention.launches += 1
 
 
@@ -81,8 +134,9 @@ def _check(q, k, v, q_positions, kv_positions, window) -> None:
 
 
 def _kernel_layout_ok(t: torch.Tensor) -> bool:
-    """The kernel reads rows with 16-byte loads (bf16) through the first
-    three strides; the last dim must be contiguous."""
+    """The last dim must be contiguous.  bf16 rows are read by TMA through
+    the first three strides, which needs a 16-byte aligned base and strides
+    that are multiples of 16 bytes."""
     if t.stride(3) != 1 and t.shape[3] > 1:
         return False
     if t.dtype == torch.bfloat16:
@@ -107,15 +161,16 @@ def flash_attention(
     dtype (float32 or bfloat16).
 
     The signature is the reference's.  In the port the device decides the
-    route: a CUDA tensor gets K4 (one launch, counted in
+    route: a CUDA tensor gets K4 (one call, counted in
     ``flash_attention.launches``) and a CPU tensor the plain version, so
     ``interpret`` changes nothing (the reference's interpreter stands in
     for a TPU that the port never has).  ``block_q`` and ``block_kv`` set
     the reference's Pallas tiles and the padding of Sq and Sk to them; the
-    kernel picks its own tiles (64 x 64 for bfloat16, 32 x 32 for float32)
-    and masks the ragged edge instead of padding, and neither changes the
-    output of a real row.  A row with no allowed key (never on the model's
-    paths) is 0 from the kernel and the mean of v from the plain version.
+    kernel picks its own tiles (bfloat16: 128-row q blocks and 128-key kv
+    tiles through wgmma and a TMA ring; float32: 32 x 32) and masks the
+    ragged edge instead of padding, and neither changes the output of a
+    real row.  A row with no allowed key (never on the model's paths) is 0
+    from the kernel and the mean of v from the plain version.
     """
     if kv_valid is not None:
         raise NotImplementedError(

@@ -25,8 +25,10 @@ from repro_torch.kernels.l0_sampler.ops import (
     add_wrapped, canonicalize_edges, l0_delta, l0_update, make_l0_params,
 )
 from repro_torch.kernels.l0_sampler.ref import l0_delta_ref
-from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ops import (
+    KV_TILE_BF16, KV_TILE_F32, Q_BLOCK_BF16, flash_attention, tile_bounds,
+)
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref, tile_bounds_ref
 from repro_torch.kernels.peel_degree.ops import tiled_degrees
 from repro_torch.kernels.peel_degree.ref import tiled_degrees_ref
 
@@ -229,11 +231,17 @@ def test_turnstile_update_launches_once_per_batch(cuda):
 
 # (B, S, Hq, Hkv, D, window, q_from): the reference's test shapes, then
 # head dims 16/24/32 and groups 1-4, ragged lengths, and windows whose
-# first kv tiles are all masked (queries the tail of the keys).
+# first kv tiles are all masked (queries the tail of the keys); then
+# lengths around the 128-key tile, with and without q_from, and head dims
+# 8 and 40 (padded to 64 columns on the bf16 route).
 FLASH_SHAPES = [
     (2, 256, 4, 4, 64, None, 0), (1, 256, 8, 2, 64, None, 0), (2, 384, 4, 2, 32, 128, 0),
     (1, 300, 2, 1, 64, None, 0), (1, 200, 6, 2, 24, None, 0), (1, 129, 3, 1, 16, 40, 0),
     (2, 1000, 8, 2, 128, None, 0), (1, 777, 12, 4, 128, 100, 0), (1, 640, 4, 1, 64, 64, 512),
+    (1, 127, 2, 1, 128, None, 0), (1, 128, 2, 2, 64, None, 0), (2, 129, 4, 2, 128, None, 0),
+    (1, 257, 2, 1, 128, 100, 0), (1, 127, 2, 1, 64, None, 60), (1, 128, 2, 2, 128, None, 100),
+    (1, 129, 4, 2, 64, None, 1), (1, 257, 2, 1, 128, None, 129), (1, 300, 4, 2, 8, None, 0),
+    (2, 257, 4, 1, 40, 64, 0), (1, 129, 2, 2, 40, None, 64),
 ]
 # K4 against its plain version: rtol = atol elementwise (the reference
 # tests' own), and a limit on each row's relative L2 error, which holds the
@@ -268,6 +276,19 @@ def _flash_controls(q, k, v, qpos, kpos, window, want, tile):
             "interior_tile": flash_attention_ref(q, k, v, qpos, kp, window=window)}
 
 
+def _flash_check(q, k, v, qpos, kpos, window, dtype):
+    """K4 within both limits, one launch; each control fails one of them."""
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, q_positions=qpos, kv_positions=kpos, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, qpos, kpos, window=window)
+    assert _flash_outside(got, want, dtype) == (0, 0)
+    tile = KV_TILE_BF16 if dtype == torch.bfloat16 else KV_TILE_F32  # K4's kv tile
+    for name, ctrl in _flash_controls(q, k, v, qpos, kpos, window, want, tile).items():
+        assert _flash_outside(ctrl, want, dtype) != (0, 0), name
+
+
 @pytest.mark.parametrize("b,s,hq,hkv,d,window,q_from", FLASH_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, b, s, hq, hkv, d, window, q_from, dtype):
@@ -275,17 +296,39 @@ def test_flash_kernel_matches_plain(cuda, b, s, hq, hkv, d, window, q_from, dtyp
     q = torch.randn(b, s - q_from, hq, d, generator=g, device=cuda).to(dtype)
     k, v = (torch.randn(b, s, hkv, d, generator=g, device=cuda).to(dtype) for _ in range(2))
     kpos = torch.arange(s, dtype=torch.int32, device=cuda) + 7
-    qpos = kpos[q_from:]
-    before = flash_attention.launches
-    got = flash_attention(q, k, v, q_positions=qpos, kv_positions=kpos, window=window)
-    torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
-    want = flash_attention_ref(q, k, v, qpos, kpos, window=window)
-    assert _flash_outside(got, want, dtype) == (0, 0)
-    # Each control must fail one of the limits.
-    tile = 64 if dtype == torch.bfloat16 else 32
-    for name, ctrl in _flash_controls(q, k, v, qpos, kpos, window, want, tile).items():
-        assert _flash_outside(ctrl, want, dtype) != (0, 0), name
+    _flash_check(q, k, v, kpos[q_from:], kpos, window, dtype)
+
+
+# (S, D, window, q_from, stride): kv positions that are not a shifted
+# arange.  A stride of 3 (window 3 * 200 = 600 positions), and windows
+# whose first allowed key falls inside a 128-key tile, so that tile is
+# masked per element while the ones before it are skipped.
+FLASH_POSITIONS = [
+    (500, 128, None, 0, 3), (700, 64, 600, 0, 3), (1000, 128, 200, 0, 1),
+    (600, 64, 129, 300, 1), (513, 128, 250, 129, 1),
+]
+
+
+@pytest.mark.parametrize("s,d,window,q_from,stride", FLASH_POSITIONS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_positions(cuda, s, d, window, q_from, stride, dtype):
+    g = torch.Generator(device=cuda).manual_seed(s)
+    q = torch.randn(1, s - q_from, 4, d, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(1, s, 2, d, generator=g, device=cuda).to(dtype) for _ in range(2))
+    kpos = stride * torch.arange(s, dtype=torch.int32, device=cuda) + 5
+    _flash_check(q, k, v, kpos[q_from:], kpos, window, dtype)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_flash_plan_matches_plain(cuda, seed):
+    """The bf16 route's first launch (each tile's position bounds) equals
+    its plain version bitwise, on shuffled positions and ragged tails."""
+    rng = np.random.default_rng(seed)
+    sk = int(rng.integers(1, 5000))
+    kpos = torch.from_numpy(rng.permutation(3 * sk)[:sk].astype(np.int32))
+    qpos = kpos[int(rng.integers(0, sk)):]
+    got = tile_bounds(qpos.to(cuda), kpos.to(cuda))
+    assert torch.equal(got.cpu(), tile_bounds_ref(qpos, kpos, Q_BLOCK_BF16, KV_TILE_BF16))
 
 
 def test_flash_kernel_many_heads(cuda):
