@@ -136,7 +136,8 @@ def phase_build() -> None:
     """Builds K1, K2, K3 and K4 from this checkout's sources, one ``nvcc``
     per source, all started together.  Then K4's kernels as ``ptxas`` built
     them (registers, spills, shared memory) and the count of ``wgmma``
-    (HGMMA) and TMA load (UTMALDG) instructions in its library's SASS."""
+    (HGMMA) and TMA load (UTMALDG) instructions in its library's SASS;
+    K2's and K3's atomic and warp-exchange instructions by form."""
     from repro_torch.kernels import BUILD_LOG, library_path, load_library
     from repro_torch.kernels.count_sketch import ops as cs_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -157,13 +158,31 @@ def phase_build() -> None:
     ptxas = str(BUILD_LOG.get(fa_ops.SOURCE.name, {}).get("ptxas", ""))
     for name, props in _ptxas_kernels(ptxas).items():
         log("build.k4", kernel=name, **props)
-    sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(library_path(fa_ops.SOURCE))],
-                          capture_output=True, text=True, check=True, timeout=120).stdout
-    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "MUFU.EX2", "HMMA")}
+    found = sass_counts(library_path(fa_ops.SOURCE), r"\b(?:HGMMA|UTMALDG|MUFU\.EX2|HMMA)\b")
+    counts = {op: found.get(op, 0) for op in ("HGMMA", "UTMALDG", "MUFU.EX2", "HMMA")}
     log("build.k4", sass_instructions=counts, bf16_dynamic_smem_bytes={
         dp: fa_ops.bf16_smem_bytes(dp) for dp in (64, 128)})
     if not (counts["HGMMA"] and counts["UTMALDG"]):
         raise AssertionError(f"K4's library has no wgmma or no TMA load: {counts}")
+    # K2's shared-memory atomics (a compare-and-swap loop shows as
+    # ATOMS.CAST.SPIN) and warp exchange; K3's global reductions.
+    for label, ops, pattern in (("k2", cs_ops, r"\b(?:ATOMS|MATCH|SHFL|VOTE|REDG?)\.[\w.]+"),
+                                ("k3", l0_ops, r"\b(?:REDG?|ATOMG?)\.[\w.]+")):
+        counts = sass_counts(library_path(ops.SOURCE), pattern)
+        log(f"build.{label}", sass_instructions=counts)
+        if not counts:
+            raise AssertionError(f"{label}'s library has no atomic: {counts}")
+
+
+def sass_counts(library: Path, pattern: str) -> dict:
+    """{instruction form: count} of the regex ``pattern`` in ``library``'s
+    SASS (``cuobjdump -sass``)."""
+    import collections
+    import re
+
+    sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(library)],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    return dict(sorted(collections.Counter(re.findall(pattern, sass)).items()))
 
 
 def _cuda_tool(name: str) -> str:
@@ -489,6 +508,16 @@ def _flat_sketch_index(src, dst, w, p):
 MASS_TOL = 3e-6
 
 
+def counter_mass(src, dst, w, p):
+    """float64[t, b]: 1 + each counter's absolute mass, ``sum(|sign*w|)``
+    over the terms it sums."""
+    import torch
+
+    flat, vals = _flat_sketch_index(src, dst, w, p)
+    return 1 + torch.zeros(p.n_tables * p.n_buckets, dtype=torch.float64, device=w.device
+                           ).index_add_(0, flat, vals.double().abs()).view(p.n_tables, p.n_buckets)
+
+
 def check_float_counters(what: str, src, dst, w, p):
     """K2 on float weights against the plain version in float64.
 
@@ -512,10 +541,7 @@ def check_float_counters(what: str, src, dst, w, p):
     want = sketch_edges_ref(src, dst, w.double(), p)
     err = (sketch_edges(src, dst, w, p).double() - want).abs()
     err_plain = (sketch_edges_ref(src, dst, w, p).double() - want).abs()
-    flat, vals = _flat_sketch_index(src, dst, w, p)
-    mass = 1 + torch.zeros(p.n_tables * p.n_buckets, dtype=torch.float64, device=w.device
-                           ).index_add_(0, flat, vals.double().abs()).view(p.n_tables, p.n_buckets)
-    del flat, vals
+    mass = counter_mass(src, dst, w, p)
     over_mass = (err / mass).max().item()
     control = ((sketch_edges_ref(src, dst, w.bfloat16().float(), p).double() - want).abs()
                / mass).max().item()
@@ -550,7 +576,9 @@ def phase_sketch_kernel(lj) -> dict:
     from repro_torch.core.api import Problem
     from repro_torch.core.countsketch import make_sketch_params
     from repro_torch.kernels.count_sketch.ops import count_sketch_update, plan, sketch_edges
-    from repro_torch.kernels.count_sketch.ref import count_sketch_update_ref, sketch_edges_ref
+    from repro_torch.kernels.count_sketch.ref import (
+        combine_runs, count_sketch_update_ref, sketch_edges_ref,
+    )
 
     prob = Problem.undirected(eps=EPS, backend="sketch")
     p = make_sketch_params(prob.sketch_tables, prob.sketch_buckets, prob.sketch_seed)
@@ -609,18 +637,50 @@ def phase_sketch_kernel(lj) -> dict:
                          .index_add_(0, flat, vals))
     del flat, vals
     # The edge list is sorted by its lower endpoint, so a warp's 32 edges
-    # mostly share src and their shared-memory adds hit one counter per
-    # table.  The same edges in a random order measure what that costs.
+    # mostly share src; K2 folds each such run into one add a table.  The
+    # same edges in a random order leave nothing to fold, and one hub as
+    # every lower endpoint folds all.  The adds each stream issues per
+    # table, counted by the plain rule (combine_runs), beside the 2E
+    # endpoints' adds before folding.
+    def adds(x0, x1, w):
+        return len(combine_runs(x0, w)[0]) + len(combine_runs(x1, w)[0])
+
     perm = torch.randperm(e, generator=torch.Generator(device=DEV).manual_seed(0), device=DEV)
     ps, pd, pw = lj.src[perm], lj.dst[perm], w0[perm]
     check_equal("shuffled edge order", sketch_edges(ps, pd, pw, p), got)
     shuffled_ms = time_ms(lambda: sketch_edges(ps, pd, pw, p))
+    adds_shuffled = adds(ps, pd, pw)
     del perm, ps, pd, pw
+    # One hub takes all 64M lower endpoints: its counters pass 2^24, where
+    # f32 sums of unit weights stop being exact (the plain version's own
+    # one-by-one f32 sum stalls at 2^24), so the hub stream is held, as
+    # float weights are, to MASS_TOL of each counter's absolute mass
+    # against the plain version in float64.
+    hub_src = torch.full_like(lj.src, 7)
+    want = sketch_edges_ref(hub_src, lj.dst, w0.double(), p)
+    mass = counter_mass(hub_src, lj.dst, w0, p)
+    hub_over = ((sketch_edges(hub_src, lj.dst, w0, p).double() - want).abs() / mass).max().item()
+    hub_plain_over = ((sketch_edges_ref(hub_src, lj.dst, w0, p).double() - want).abs()
+                      / mass).max().item()
+    del want, mass
+    if hub_over > MASS_TOL:
+        raise AssertionError(f"hub stream: error {hub_over} of the counters' absolute mass, "
+                             f"past {MASS_TOL}")
+    log("sketch.check", case="livejournal_hub_stream", tolerance=f"{MASS_TOL} x (1 + counter's "
+        "abs mass) vs plain in f64", max_err_over_mass=hub_over,
+        plain_f32_max_err_over_mass=hub_plain_over)
+    hub_ms = time_ms(lambda: sketch_edges(hub_src, lj.dst, w0, p))
+    adds_hub = adds(hub_src, lj.dst, w0)
+    del hub_src
+    adds_stream = adds(lj.src, lj.dst, w0)
     window, groups = plan(p.n_tables, p.n_buckets)
     bound_ms = sketch_bound_ms(e, p.n_tables, p.n_buckets, groups)
-    log("sketch.time", kernel_ms=ms, kernel_ms_edges_shuffled=shuffled_ms, plain_ms=plain_ms,
+    log("sketch.time", kernel_ms=ms, kernel_ms_edges_shuffled=shuffled_ms,
+        kernel_ms_hub=hub_ms, stream_over_shuffled=ms / shuffled_ms, plain_ms=plain_ms,
         library_ms_scatter_only=library_ms, bound_us=bound_ms * 1e3,
         roofline_share=bound_ms / ms, window=window, groups=groups)
+    log("sketch.adds", per_table_stream_order=adds_stream, per_table_shuffled=adds_shuffled,
+        per_table_hub=adds_hub, per_table_unfolded=2 * int((w0 != 0).sum().item()))
     return {
         "name": "count_sketch_update",
         "route": "cuda",
@@ -722,6 +782,53 @@ def l0_bound_ms(n_rows: int, n_cells_touched: int) -> float:
     return (n_rows * 12 + n_cells_touched * 16 * 2) / HBM_BYTES_PER_S * 1e3
 
 
+def l0_sector_ops(flat, live) -> dict:
+    """L2 sector atomics one K3 launch issues (a cell's four int32 fields
+    are 16 B; a 32 B sector holds two cells), from the batch's cells
+    ``flat`` (int64[d, E], ``flat_cells``) and its live rows (``live``,
+    sign != 0 after canonicalization).  One red instruction touches each
+    distinct sector of its lanes once.
+
+    * ``one_thread_per_row``: the kernel this one replaced.  A warp takes 32
+      consecutive rows and issues four instructions per table, one per
+      field, each over the live rows' cells.
+    * ``four_lanes_per_cell``: this kernel.  A warp takes 128 rows, lane l
+      rows 4l..4l+3; for each k < 4 the live rows among rows 4l+k are
+      staged in lane order, and each instruction (one per table) covers
+      8 staged rows, all four fields.
+
+    Also the share of live (row, table) adds whose cell another row of
+    the same staged set hits: what folding equal cells in a warp
+    (``__match_any_sync``) could save."""
+    import torch
+
+    d, n = flat.shape
+    pad = (-n) % 128
+    flat = torch.nn.functional.pad(flat, (0, pad))
+    live = torch.nn.functional.pad(live, (0, pad))
+    rows = torch.arange(n + pad, device=flat.device)
+    table = torch.arange(d, device=flat.device)[:, None]
+
+    def distinct(group, where):  # distinct (group, table, where) over live rows
+        key = (group[None, :] * d + table) * (int(where.max().item()) + 1) + where
+        return torch.unique(key[:, live]).numel()
+
+    warp32 = rows // 32
+    # Staged sets: (chunk of 128 rows, k); a row's slot is its rank among
+    # its set's live rows in lane order.
+    lv = live.view(-1, 32, 4).transpose(1, 2)  # [chunk, k, lane]
+    slot = (torch.cumsum(lv.long(), dim=2) - 1).transpose(1, 2).reshape(-1)
+    staged = (rows // 128) * 4 + rows % 4
+    adds = int(live.sum().item()) * d
+    return {
+        "one_thread_per_row": 4 * distinct(warp32, flat // 2),
+        "four_lanes_per_cell": distinct(staged * 4 + slot // 8, flat // 2),
+        "red_instructions_before": 4 * d * torch.unique(warp32[live]).numel(),
+        "red_instructions_after": d * int((-(-lv.long().sum(2) // 8)).sum().item()),
+        "same_cell_in_staged_set_share": (adds - distinct(staged, flat)) / max(1, adds),
+    }
+
+
 def _l0_plain(src, dst, sgn, p):
     from repro_torch.kernels.l0_sampler.ops import canonicalize_edges
     from repro_torch.kernels.l0_sampler.ref import l0_delta_ref
@@ -739,8 +846,8 @@ def phase_l0_kernel(flickr) -> dict:
 
     from repro_torch.kernels import hashing
     from repro_torch.kernels.l0_sampler.ops import (
-        canonicalize_edges, edge_cells, edge_fingerprint, edge_level, l0_delta,
-        l0_sketch_shape, l0_update, make_l0_params,
+        canonicalize_edges, edge_fingerprint, flat_cells, l0_delta, l0_sketch_shape, l0_update,
+        make_l0_params,
     )
 
     rows = TURNSTILE_BATCH
@@ -776,27 +883,24 @@ def phase_l0_kernel(flickr) -> dict:
     ms = time_ms(lambda: l0_update(tables, src, dst, ones, p))
     plain_ms = time_ms(lambda: _l0_plain(src, dst, ones, p), n=10, warmup=1)
     # The library yardstick: the scatter alone, over precomputed indices.
+    # The batch's rows are canonical already (flickr's edges are u < v).
+    u, v, s = canonicalize_edges(src, dst, ones)
     d, C = p.n_tables, p.n_cells
-    lvl, cells = edge_level(p, src, dst).long(), edge_cells(p, src, dst).long()
-    flat = (lvl[None, :] * (d * C) + torch.arange(d, device=DEV)[:, None] * C + cells).reshape(-1)
-    fp = hashing.to_i32(edge_fingerprint(p, src, dst))
-    vals = torch.stack([ones, ones * src, ones * dst, fp], dim=-1).repeat(d, 1)
+    flat = flat_cells(p, u, v)
+    fp = hashing.to_i32(edge_fingerprint(p, u, v))
+    vals = torch.stack([s, s * u, s * v, s * fp], dim=-1).repeat(d, 1)
     flat_tables = tables.view(-1, 4)
-    library_ms = time_ms(lambda: flat_tables.index_add_(0, flat, vals))
+    library_ms = time_ms(lambda: flat_tables.index_add_(0, flat.reshape(-1), vals))
     # The cells this batch touches: (level, table, cell) of every row
     # with a non-zero sign after canonicalization.
-    u, v, s = canonicalize_edges(src, dst, ones)
     live = s != 0
-    u, v = u[live], v[live]
-    touched = torch.unique(
-        edge_level(p, u, v).long()[None, :] * (d * C)
-        + torch.arange(d, device=DEV)[:, None] * C + edge_cells(p, u, v).long()
-    ).numel()
+    touched = torch.unique(flat[:, live]).numel()
     bound_ms = l0_bound_ms(rows, touched)
     log("l0.time", kernel_ms=ms, plain_ms=plain_ms, library_ms_scatter_only=library_ms,
-        bound_us=bound_ms * 1e3, roofline_share=bound_ms / ms, rows=rows,
-        nonzero_rows=int(live.sum().item()), cells_touched=touched,
-        cells_in_table=p.n_levels * d * C)
+        kernel_over_library=ms / library_ms, bound_us=bound_ms * 1e3,
+        roofline_share=bound_ms / ms, rows=rows, nonzero_rows=int(live.sum().item()),
+        cells_touched=touched, cells_in_table=p.n_levels * d * C)
+    log("l0.sectors", **l0_sector_ops(flat, live))
     return {
         "name": "l0_delta",
         "route": "cuda",

@@ -19,16 +19,19 @@ from repro_torch.kernels.count_sketch.ref import count_sketch_update_ref, sketch
 SOURCE = Path(__file__).resolve().parent / "csrc" / "count_sketch.cu"
 # The hash parameters ride in the kernel's argument block (4 words a table).
 MAX_TABLES = 16
+# Shared memory a CTA's counter window may take: what one CTA may use, less
+# the 16 KB of its 32 warps' queues of folded adds (count_sketch.cu, Queue).
+WINDOW_BYTES = MAX_SMEM_BYTES - 32 * 64 * 8
 
 
 def plan(n_tables: int, n_buckets: int) -> Tuple[int, int]:
     """``(window, n_groups)``: the flat ``t*b`` counter index is cut into
     ``n_groups`` windows of ``window`` counters, each held in one CTA's
-    shared memory (at most ``MAX_SMEM_BYTES``), and every group of CTAs
+    shared memory (at most ``WINDOW_BYTES``), and every group of CTAs
     reads all the edges once.  All tables fit one window at the defaults
     (t=5, b=8192: 160 KB); else whole tables per window; else a table is
     split into windows."""
-    cap = MAX_SMEM_BYTES // 4
+    cap = WINDOW_BYTES // 4
     total = n_tables * n_buckets
     if total <= cap:
         window = total

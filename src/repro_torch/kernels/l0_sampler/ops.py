@@ -34,6 +34,7 @@ __all__ = [
     "edge_cells",
     "edge_fingerprint",
     "edge_level",
+    "flat_cells",
     "l0_delta",
     "l0_sketch_shape",
     "l0_update",
@@ -117,6 +118,14 @@ def edge_cells(p: L0Params, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         hashing.bucket32(_pair(p.a_cell[j, 0], p.a_cell[j, 1], p.c_cell[j], u, v), p.n_cells)
         for j in range(p.n_tables)
     ])
+
+
+def flat_cells(p: L0Params, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """int64[d, E] index of each canonical edge's cell in every table, in
+    the sketch viewed as ``[L*d*C, 4]``: ``(level·d + j)·C + cell_j``."""
+    rows = torch.arange(p.n_tables, dtype=torch.int64, device=u.device)[:, None]
+    lvl = edge_level(p, u, v).to(torch.int64)[None, :]
+    return (lvl * p.n_tables + rows) * p.n_cells + edge_cells(p, u, v).to(torch.int64)
 
 
 def edge_fingerprint(p: L0Params, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -12,12 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import hashing
-from repro_torch.kernels.l0_sampler.ops import (
-    L0Params,
-    edge_cells,
-    edge_fingerprint,
-    edge_level,
-)
+from repro_torch.kernels.l0_sampler.ops import L0Params, edge_fingerprint, flat_cells
 
 
 def l0_delta_ref(
@@ -28,11 +23,8 @@ def l0_delta_ref(
 ) -> torch.Tensor:
     """Sketch delta int32[L, d, C, 4] (sums wrapped mod 2^32)."""
     L, d, C = params.n_levels, params.n_tables, params.n_cells
-    lvl = edge_level(params, u, v).to(torch.int64)  # [E]
-    cells = edge_cells(params, u, v).to(torch.int64)  # [d, E]
+    flat = flat_cells(params, u, v)  # [d, E]
     fp = hashing.to_i32(edge_fingerprint(params, u, v)).to(torch.int64)
-    rows = torch.arange(d, dtype=torch.int64, device=u.device)[:, None]
-    flat = lvl[None, :] * (d * C) + rows * C + cells  # [d, E]
     s = sgn.to(torch.int64)
     vals = torch.stack([s, s * u.to(torch.int64), s * v.to(torch.int64), s * fp], dim=-1)
     delta = torch.zeros(L * d * C, 4, dtype=torch.int64, device=u.device)

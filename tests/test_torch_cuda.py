@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from repro_torch.core import Problem, solve
-from repro_torch.core.countsketch import make_sketch_params
+from repro_torch.core.countsketch import _hash_bucket, make_sketch_params
 from repro_torch.core.turnstile import TurnstileSketch
 from repro_torch.graph import generators
 from repro_torch.graph.partition import TiledEdges, bucket_edges_by_tile
@@ -157,6 +157,49 @@ def test_count_sketch_kernel_adversarial(cuda):
     assert got.shape == (5, 8192) and not got.any()
 
 
+# K2 folds runs of equal endpoints inside each 32-edge step.  Streams whose
+# runs cross steps, with the three window routes: one window (t=5,
+# b=8192), whole tables per window (t=8, b=32768), a split table (t=2,
+# b=100,003).  Unit weights bitwise; float weights within chip_smoke.py's
+# MASS_TOL of each counter's absolute mass, against the plain version in
+# float64.
+CS_MASS_TOL = 3e-6
+CS_ROUTES = [(5, 8192), (8, 32768), (2, 100_003)]
+
+
+def _cs_stream(kind, n=200_003, seed=0):
+    rng = np.random.default_rng(seed)
+    if kind == "sorted":  # a lower-endpoint-sorted edge list: runs of 1..200
+        x0 = np.sort(rng.integers(0, n // 40, n))
+    else:  # one hub takes every lower endpoint
+        x0 = np.full(n, 123_457)
+    x1 = rng.integers(0, 1_000_000, n)
+    return (torch.from_numpy(a.astype(np.int32)).cuda() for a in (x0, x1))
+
+
+def _cs_mass_err(got, w, p, *endpoints):
+    want = torch.zeros_like(got, dtype=torch.float64)
+    mass = torch.ones_like(want)
+    for x in endpoints:
+        count_sketch_update_ref(x, w.double(), p, out=want)
+        mass.scatter_add_(1, _hash_bucket(p, x).long(), w.double().abs().expand(p.n_tables, -1))
+    return ((got.double() - want).abs() / mass).max().item()
+
+
+@pytest.mark.parametrize("kind", ["sorted", "hub"])
+@pytest.mark.parametrize("t,b", CS_ROUTES)
+def test_count_sketch_kernel_folds_runs(cuda, kind, t, b):
+    p = make_sketch_params(t, b, seed=5)
+    x0, x1 = _cs_stream(kind)
+    ones = torch.ones(x0.shape[0], device=cuda)
+    assert torch.equal(sketch_edges(x0, x1, ones, p), sketch_edges_ref(x0, x1, ones, p))
+    assert torch.equal(count_sketch_update(x0, ones, p), count_sketch_update_ref(x0, ones, p))
+    w = torch.from_numpy(np.random.default_rng(1).random(x0.shape[0]).astype(np.float32)).cuda()
+    assert _cs_mass_err(sketch_edges(x0, x1, w, p), w, p, x0, x1) <= CS_MASS_TOL
+    assert _cs_mass_err(count_sketch_update(x0, w, p), w, p, x0) <= CS_MASS_TOL
+    torch.cuda.synchronize()
+
+
 # -- K3: the l0-sampler update kernel -----------------------------------------
 
 L0_SHAPES = [(300, 8, 256), (5000, 32, 16384), (2049, 1, 1000), (70_000, 32, 256)]
@@ -195,6 +238,41 @@ def test_l0_kernel_wraps_mod_2_32(cuda):
     got = l0_delta(u, v, s, p)
     assert torch.equal(got, l0_delta_ref(*canonicalize_edges(u, v, s), p))
     assert (got < 0).any()  # the sums did wrap
+
+
+def _l0_check(u, v, s, p):
+    want = l0_delta_ref(*canonicalize_edges(u, v, s), p)
+    assert torch.equal(l0_delta(u, v, s, p), want)
+    tables = torch.full_like(want, 2**31 - 3)
+    assert torch.equal(l0_update(tables, u, v, s, p), add_wrapped(torch.full_like(want, 2**31 - 3),
+                                                                   want))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("repeats", [32, 1000])
+def test_l0_kernel_hot_cell(cuda, repeats):
+    """One edge repeated in consecutive rows: every lane of a warp adds
+    into the same cell."""
+    p = make_l0_params(n_levels=32, n_cells=1 << 14, n_tables=3, seed=1)
+    u, v, s = (torch.from_numpy(a).to(cuda) for a in _l0_case(4096, seed=3))
+    u[100:100 + repeats], v[100:100 + repeats], s[100:100 + repeats] = 17, 4242, 1
+    _l0_check(u, v, s, p)
+
+
+@pytest.mark.parametrize("n_rows", [1, 3, 129, 1001, 70_003])
+def test_l0_kernel_ragged_rows_sign0_and_self_loops(cuda, n_rows):
+    """n_rows % 4 != 0, rows with sign 0 and self-loops mixed in."""
+    p = make_l0_params(n_levels=32, n_cells=1 << 14, n_tables=3, seed=2)
+    _l0_check(*(torch.from_numpy(a).to(cuda) for a in _l0_case(n_rows, seed=n_rows)), p)
+
+
+@pytest.mark.parametrize("start", [1, 2, 3])
+def test_l0_kernel_misaligned_slice(cuda, start):
+    """Views that start 4, 8 or 12 bytes past a 16-byte boundary."""
+    p = make_l0_params(n_levels=8, n_cells=256, n_tables=3, seed=3)
+    u, v, s = (torch.from_numpy(a).to(cuda) for a in _l0_case(10_000, seed=4))
+    _l0_check(u[start:], v[start:], s[start:], p)
+    _l0_check(u[start:-5], v[3:-5 - start + 3], s[start:-5], p)
 
 
 @pytest.mark.parametrize("stream_mode", ["insert", "turnstile"])
