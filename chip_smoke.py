@@ -137,7 +137,8 @@ def phase_build() -> None:
     per source, all started together.  Then K4's kernels as ``ptxas`` built
     them (registers, spills, shared memory) and the count of ``wgmma``
     (HGMMA) and TMA load (UTMALDG) instructions in its library's SASS;
-    K2's and K3's atomic and warp-exchange instructions by form."""
+    K1's, K2's and K3's atomic and warp-exchange instructions by form (K1
+    must have no shared atomic and a global reduction)."""
     from repro_torch.kernels import BUILD_LOG, library_path, load_library
     from repro_torch.kernels.count_sketch import ops as cs_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -164,14 +165,18 @@ def phase_build() -> None:
         dp: fa_ops.bf16_smem_bytes(dp) for dp in (64, 128)})
     if not (counts["HGMMA"] and counts["UTMALDG"]):
         raise AssertionError(f"K4's library has no wgmma or no TMA load: {counts}")
-    # K2's shared-memory atomics (a compare-and-swap loop shows as
-    # ATOMS.CAST.SPIN) and warp exchange; K3's global reductions.
-    for label, ops, pattern in (("k2", cs_ops, r"\b(?:ATOMS|MATCH|SHFL|VOTE|REDG?)\.[\w.]+"),
+    # K1's and K2's shared-memory atomics (a compare-and-swap loop shows as
+    # ATOMS.CAST.SPIN) and warp exchange; K1's and K3's global reductions.
+    warp_ops = r"\b(?:ATOMS|MATCH|SHFL|VOTE|REDG?|ATOMG?)\.[\w.]+"
+    for label, ops, pattern in (("k1", pd_ops, warp_ops), ("k2", cs_ops, warp_ops),
                                 ("k3", l0_ops, r"\b(?:REDG?|ATOMG?)\.[\w.]+")):
         counts = sass_counts(library_path(ops.SOURCE), pattern)
         log(f"build.{label}", sass_instructions=counts)
         if not counts:
             raise AssertionError(f"{label}'s library has no atomic: {counts}")
+        if label == "k1" and (any(op.startswith("ATOMS") for op in counts)
+                              or not any(op.startswith("RED") for op in counts)):
+            raise AssertionError(f"K1 should add with plain shared stores and reds: {counts}")
 
 
 def sass_counts(library: Path, pattern: str) -> dict:
@@ -244,9 +249,38 @@ def _adversarial_cases(dev):
         n_odd = 10_007  # not a multiple of the tile size
         add(f"ragged_n_t{tile_size}", rng.integers(0, n_odd, 30_000),
             rng.integers(0, n_odd, 30_000), n_odd, tile_size)
+    # The redesign's cases: runs across a lane's 4 slots, a 128-slot warp
+    # step and a chunk (also through views 4 bytes past a 16-byte boundary),
+    # one node holding every slot, tiles of chunk_slots slots and one more,
+    # and tile sizes at which 8, 2 and 1 histogram copies fit.
+    lens = [3, 5, 130, 1500, 1, 7, 300, 2049, 4, 129, 128]
+    runs = np.repeat(np.arange(len(lens)) * 7 % 64, lens)
+
+    def ragged(name, counts, targets, tile_size, offset=0):
+        s_ = int(np.sum(counts))
+        ptr = torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int64, device=dev)
+        tl = torch.zeros(s_ + offset, dtype=torch.int32, device=dev)
+        tl[offset:] = torch.as_tensor(np.asarray(targets, np.int32), device=dev)
+        ei = torch.arange(-offset, s_, dtype=torch.int32, device=dev)
+        t = TiledEdges.from_ragged(ptr, tl[offset:], torch.zeros_like(tl[offset:]), ei[offset:],
+                                   tile_size=tile_size, n_nodes=len(counts) * tile_size,
+                                   n_edges=s_)
+        w = torch.from_numpy(rng.integers(0, 4, s_).astype(np.float32)).to(dev)
+        cases.append((name, t, w, t.n_nodes))
+
+    ragged("k1_runs", [1, len(runs) - 1], runs, 64)
+    ragged("k1_runs_misaligned_view", [3, len(runs) - 3], runs, 64, offset=1)
+    ragged("k1_one_node", [0, 50_000, 3], [5] * 50_000 + [1, 1, 2], 64)
+    for extra in (0, 1):  # chunk_slots is 1,024 below 1M slots
+        ragged(f"k1_tile_at_chunk_plus{extra}", [7, 1024 + extra, 3000 - 1034 - extra, 3],
+               rng.integers(0, 64, 3000), 64)
+    for tile_size in (1024, 20_000, 58_112):
+        n = 3 * tile_size - 5
+        add(f"k1_tile_size_{tile_size}", rng.integers(0, n, 200_000),
+            np.sort(rng.integers(0, n, 200_000)), n, tile_size)
     # The reference's dense layout, padding slots included, under both of
     # its padding conventions.
-    name, base, w, n = cases[-1]
+    name, base, w, n = [c for c in cases if c[0] == "ragged_n_t1024"][0]
     for pad_tl, pad_ei in ((0, -1), (-1, -1), (-1, 0)):
         tl, sg, ei = base.to_dense(512)
         pad = ei < 0
@@ -267,19 +301,38 @@ def phase_kernel(flickr) -> dict:
     import numpy as np
     import torch
 
+    from repro_torch import hostsync
     from repro_torch.core.engine import segment_degree_count, undirected_pass_step
+    from repro_torch.graph.partition import TiledEdges
+    from repro_torch.kernels.peel_degree import ops as pd_ops
     from repro_torch.kernels.peel_degree.ops import tiled_degrees, tiling_for_edges
-    from repro_torch.kernels.peel_degree.ref import tiled_degrees_ref
+    from repro_torch.kernels.peel_degree.ref import fold_runs, tiled_degrees_ref
 
     dev = flickr.device
     n, e = flickr.n_nodes, flickr.n_edges_padded
+    torch.cuda.synchronize()
+    syncs = hostsync.read.count
     t0 = time.perf_counter()
     tiling = tiling_for_edges(flickr, tile_size=1024)
     torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    build_syncs = hostsync.read.count - syncs
+    if build_syncs:
+        raise AssertionError(f"building a tiling made {build_syncs} host syncs")
+    w0 = torch.where(flickr.mask, flickr.weight, 0.0)
+    counts = tiling.tile_ptr[1:] - tiling.tile_ptr[:-1]
+    cs = tiling.chunk_slots
+    split = counts > cs
+    split_pieces = int(((counts[split] + cs - 1) // cs).sum().item())
+    fold_adds = int(fold_runs(tiling, w0)[0].numel())
+    live_slots = int((w0[tiling.edge_index.long()] != 0).sum().item())
     log("kernel.tiling", n_nodes=n, n_edges=e, slots=tiling.n_slots, tiles=tiling.n_tiles,
-        chunks=tiling.chunk_tile.numel(),
-        hub_tile_slots=int((tiling.tile_ptr[1] - tiling.tile_ptr[0]).item()),
-        build_ms=round((time.perf_counter() - t0) * 1e3, 3))
+        chunk_slots=cs, plan_entries=tiling.chunk_tile.numel(),
+        ctas=int((tiling.chunk_tile >= 0).sum().item()), split_tiles=int(split.sum().item()),
+        split_pieces=split_pieces, global_reds_at_most=split_pieces * tiling.tile_size,
+        fold_adds=fold_adds, live_slots=live_slots, fold_adds_per_live_slot=fold_adds / live_slots,
+        hub_tile_slots=int(counts[0].item()), build_ms=build_ms, build_host_syncs=build_syncs,
+        tiling_ms=time_ms(lambda: tiling_for_edges(flickr, tile_size=1024), n=10))
 
     def kernel(w):
         return tiled_degrees(tiling, w, n_nodes=n)
@@ -289,7 +342,6 @@ def phase_kernel(flickr) -> dict:
 
     errs = []
     # (a) the main path's first two passes: alive-masked unit weights.
-    w0 = torch.where(flickr.mask, flickr.weight, 0.0)
     deg0, total0 = segment_degree_count(flickr.src, flickr.dst, w0, n)
     alive1, _ = undirected_pass_step(torch.ones(n, dtype=torch.bool, device=dev), deg0, total0, EPS)
     w1 = torch.where(flickr.mask & alive1[flickr.src] & alive1[flickr.dst], flickr.weight, 0.0)
@@ -311,23 +363,52 @@ def phase_kernel(flickr) -> dict:
     plain_f32_err = (plain(wf).double() - want_f.double()).abs().max().item()
     log("kernel.check", case="flickr_float", tolerance="rtol=atol=1e-5 vs plain in f64",
         max_abs_err=err_f, plain_f32_max_abs_err=plain_f32_err)
-    # (c) adversarial layouts.
+    # (c) adversarial layouts; the redesign's cases also launched twice and
+    # with float weights.
     for name, t, w, nn in _adversarial_cases(dev):
-        errs.append(check_equal(name, tiled_degrees(t, w, n_nodes=nn), tiled_degrees_ref(t, w)[:nn]))
-        log("kernel.check", case=name, equal="bitwise", slots=t.n_slots, tiles=t.n_tiles)
+        want = tiled_degrees_ref(t, w)[:nn]
+        errs.append(check_equal(name, tiled_degrees(t, w, n_nodes=nn), want))
+        extra = {}
+        if name.startswith("k1_"):
+            errs.append(check_equal(f"{name} again", tiled_degrees(t, w, n_nodes=nn), want))
+            rand = np.random.default_rng(2).random(t.n_edges).astype(np.float32)
+            wf = torch.from_numpy(rand).to(dev)
+            extra["float_max_abs_err"] = check_close(f"{name} float", tiled_degrees(
+                t, wf, n_nodes=nn), tiled_degrees_ref(t, wf.double())[:nn])
+            errs.append(extra["float_max_abs_err"])
+        log("kernel.check", case=name, equal="bitwise", slots=t.n_slots, tiles=t.n_tiles,
+            chunk_slots=t.chunk_slots, **extra)
     torch.cuda.synchronize()
 
     # Timing at the main path's shapes (first rung, pass-0 weights).
     endpoints = torch.cat([flickr.src, flickr.dst]).long()
     w2 = torch.cat([w0, w0])
     ms = time_ms(lambda: kernel(w0))
+    deg = torch.zeros(tiling.n_tiles * tiling.tile_size, dtype=torch.float32, device=dev)
+    launches = tiled_degrees.launches
+    alone_ms = time_ms(lambda: pd_ops._launch(tiling, w0, deg))  # the C call alone
+    tiled_degrees.launches = launches
+    # A control where runs do not fold: each tile's slots in a seeded
+    # random order (the tiling's contract allows any order within a tile).
+    perm = torch.argsort(tiling.tile_of_slot() * tiling.n_slots + torch.randperm(
+        tiling.n_slots, device=dev, generator=torch.Generator(device=dev).manual_seed(0)))
+    shuffled = TiledEdges.from_ragged(
+        tiling.tile_ptr, tiling.target_local[perm], tiling.source[perm], tiling.edge_index[perm],
+        tile_size=tiling.tile_size, n_nodes=n, n_edges=e)
+    errs.append(check_equal("flickr pass0 shuffled", tiled_degrees(shuffled, w0, n_nodes=n),
+                            plain(w0)))
+    shuffled_ms = time_ms(lambda: tiled_degrees(shuffled, w0, n_nodes=n))
+    shuffled_adds = int(fold_runs(shuffled, w0)[0].numel())
+    del shuffled, perm
     plain_ms = time_ms(lambda: plain(w0))
     library_ms = time_ms(
         lambda: torch.zeros(n, dtype=torch.float32, device=dev).index_add_(0, endpoints, w2)
     )
     bound_ms = kernel_bound_ms(tiling, e)
-    log("kernel.time", kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        bound_us=bound_ms * 1e3, roofline_share=bound_ms / ms)
+    log("kernel.time", kernel_ms=ms, kernel_alone_ms=alone_ms, shuffled_ms=shuffled_ms,
+        shuffled_fold_adds=shuffled_adds, plain_ms=plain_ms, library_ms=library_ms,
+        bound_us=bound_ms * 1e3, roofline_share=bound_ms / ms,
+        roofline_share_alone=bound_ms / alone_ms)
     return {
         "name": "tiled_degrees",
         "route": "cuda",

@@ -17,18 +17,28 @@ from typing import Tuple
 
 import torch
 
-from repro_torch import hostsync
 
-# Slots per CTA of the tiled-degree kernel.  A tile's slot range is cut into
-# chunks of this size so a hub tile (21% of all slots at FLICKR scale) is
-# spread over many SMs instead of serializing on one.
-CHUNK_SLOTS = 4096
+# The tiled-degree kernel's chunk plan.  A tile of at most ``chunk_slots``
+# slots is one CTA; a larger one (a hub tile holds 21% of all slots at
+# FLICKR scale) is cut into ``chunk_slots`` pieces spread over many SMs.
+# ``chunk_slots`` depends on the slot count alone: the power of two that cuts
+# the slots into about CHUNK_TARGET pieces (about one wave of resident CTAs
+# on an H100), at least CHUNK_FLOOR (one 128-slot step for each of a CTA's
+# 8 warps).
+CHUNK_TARGET = 1024
+CHUNK_FLOOR = 1024
 
 
 def pow2_bucket(x: int, floor: int = 1) -> int:
     """Smallest power of two >= x, floored — the bucket-size rule of the
     compaction ladder, shared so every consumer lands on the same shapes."""
     return max(floor, 1 << max(int(x) - 1, 0).bit_length())
+
+
+def chunk_slots_for(n_slots: int) -> int:
+    """Slots per kernel chunk for a tiling of ``n_slots`` slots: 16,384 at
+    FLICKR's first rung (14.1M slots), CHUNK_FLOOR below 1M slots."""
+    return pow2_bucket(-(-int(n_slots) // CHUNK_TARGET), CHUNK_FLOOR)
 
 
 def ladder_schedule(m0: int, floor: int = 1, stride: int = 2) -> Tuple[int, ...]:
@@ -59,12 +69,15 @@ class TiledEdges:
       edge_index:   int32[S] index into the edge array the tiling was built
                     from (where the pass's alive weight is read); a slot
                     with a negative index adds nothing.
-      chunk_tile:   int32[C] tile of each kernel chunk.
+      chunk_tile:   int32[C] tile of each kernel chunk; -1 past the real
+                    chunks (C is the host-known bound ``n_tiles +
+                    ceil(S / chunk_slots)``, so no count is read back).
       chunk_start:  int64[C] first slot of each kernel chunk; a chunk ends
-                    ``CHUNK_SLOTS`` later or at its tile's end.
+                    ``chunk_slots`` later or at its tile's end.
       tile_size:    nodes per tile (node i lives in tile i // tile_size).
       n_nodes:      node count.
       n_edges:      length of the edge array ``edge_index`` addresses.
+      chunk_slots:  the chunk size the plan was made with.
     """
 
     tile_ptr: torch.Tensor
@@ -76,6 +89,7 @@ class TiledEdges:
     tile_size: int
     n_nodes: int
     n_edges: int
+    chunk_slots: int
 
     @classmethod
     def from_ragged(
@@ -89,25 +103,33 @@ class TiledEdges:
         n_nodes: int,
         n_edges: int,
     ) -> "TiledEdges":
-        """Builds the kernel's chunk list for a ragged layout."""
-        counts = tile_ptr[1:] - tile_ptr[:-1]
-        n_chunks = (counts + CHUNK_SLOTS - 1) // CHUNK_SLOTS
-        chunk_ptr = torch.cumsum(n_chunks, 0)
-        total = hostsync.read(chunk_ptr[-1]) if len(chunk_ptr) else 0
-        tiles = torch.arange(len(counts), device=tile_ptr.device)
-        chunk_tile = torch.repeat_interleave(tiles, n_chunks, output_size=total)
-        rank = torch.arange(total, device=tile_ptr.device) - (chunk_ptr - n_chunks)[chunk_tile]
-        chunk_start = tile_ptr[chunk_tile] + rank * CHUNK_SLOTS
+        """Builds the kernel's chunk plan for a ragged layout, on the
+        layout's device, without reading anything back to the host: a tile
+        of at most ``chunk_slots_for(S)`` slots is one chunk (an empty tile
+        too), a larger one is cut into pieces of that size."""
+        tile_ptr = tile_ptr.to(torch.int64)
+        n_tiles, n_slots = tile_ptr.shape[0] - 1, target_local.shape[0]
+        chunk_slots = chunk_slots_for(n_slots)
+        pieces = ((tile_ptr[1:] - tile_ptr[:-1] + chunk_slots - 1) // chunk_slots).clamp(min=1)
+        piece_end = torch.cumsum(pieces, 0)
+        bound = n_tiles + -(-n_slots // chunk_slots)
+        idx = torch.arange(bound, device=tile_ptr.device)
+        tile = torch.searchsorted(piece_end, idx, right=True)
+        real = tile < n_tiles
+        tile = tile.clamp(max=max(n_tiles - 1, 0))
+        rank = idx - (piece_end - pieces)[tile]
+        chunk_start = torch.where(real, tile_ptr[tile] + rank * chunk_slots, 0)
         return cls(
-            tile_ptr=tile_ptr.to(torch.int64).contiguous(),
+            tile_ptr=tile_ptr.contiguous(),
             target_local=target_local.to(torch.int32).contiguous(),
             source=source.to(torch.int32).contiguous(),
             edge_index=edge_index.to(torch.int32).contiguous(),
-            chunk_tile=chunk_tile.to(torch.int32).contiguous(),
+            chunk_tile=torch.where(real, tile, -1).to(torch.int32).contiguous(),
             chunk_start=chunk_start.to(torch.int64).contiguous(),
             tile_size=int(tile_size),
             n_nodes=int(n_nodes),
             n_edges=int(n_edges),
+            chunk_slots=chunk_slots,
         )
 
     @property
@@ -159,8 +181,11 @@ def bucket_edges_by_tile(
     directed: bool = False,
 ) -> TiledEdges:
     """One-time 'shuffle': group endpoint slots by node tile, on the device
-    of ``src``.  A stable sort of the slots' tile ids keeps the reference's
-    in-tile order; a bincount gives the tile boundaries.
+    of ``src``, without reading anything back to the host.  A stable sort
+    of the slots' tile ids keeps the reference's in-tile order (int16 keys
+    when the tile ids fit: a stable sort gives the same permutation at any
+    key width, and the radix sort makes fewer passes); ``searchsorted`` over
+    the sorted ids gives the tile boundaries.
 
     For directed graphs only dst-targeted slots are produced (out-degree is
     bucketed separately by swapping arguments).
@@ -178,12 +203,13 @@ def bucket_edges_by_tile(
         sources = torch.cat([src, dst])
         eidx = torch.cat([eidx, eidx])
     n_tiles = (n_nodes + tile_size - 1) // tile_size
-    tile_sorted, order = torch.sort(targets // tile_size, stable=True)
-    counts = torch.bincount(tile_sorted, minlength=n_tiles)
-    tile_ptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    key_dtype = torch.int16 if n_tiles < 2**15 else torch.int32
+    tile_sorted, order = torch.sort((targets // tile_size).to(key_dtype), stable=True)
+    bounds = torch.arange(n_tiles + 1, dtype=key_dtype, device=src.device)
+    tile_ptr = torch.searchsorted(tile_sorted, bounds)
     return TiledEdges.from_ragged(
         tile_ptr,
-        targets[order] - tile_sorted * tile_size,
+        targets[order] - tile_sorted.to(torch.int32) * tile_size,
         sources[order],
         eidx[order],
         tile_size=tile_size,

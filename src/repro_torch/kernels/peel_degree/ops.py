@@ -11,7 +11,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.graph.edgelist import EdgeList
-from repro_torch.graph.partition import CHUNK_SLOTS, TiledEdges, bucket_edges_by_tile
+from repro_torch.graph.partition import TiledEdges, bucket_edges_by_tile
 from repro_torch.kernels import MAX_SMEM_BYTES, load_library, use_kernel
 from repro_torch.kernels.peel_degree.ref import degrees_from_tiled, tiled_degrees_ref
 
@@ -38,7 +38,7 @@ def _launch(tiling: TiledEdges, w_alive: torch.Tensor, deg: torch.Tensor) -> Non
             tiling.tile_ptr.data_ptr(), tiling.chunk_tile.data_ptr(),
             tiling.chunk_start.data_ptr(), tiling.chunk_tile.shape[0],
             tiling.target_local.data_ptr(), tiling.edge_index.data_ptr(),
-            w_alive.data_ptr(), deg.data_ptr(), tiling.tile_size, CHUNK_SLOTS,
+            w_alive.data_ptr(), deg.data_ptr(), tiling.tile_size, tiling.chunk_slots,
             torch.cuda.current_stream(w_alive.device).cuda_stream,
         )
     if err != 0:

@@ -90,6 +90,83 @@ def test_kernel_ignores_dense_padding(cuda, pad_tl, pad_ei):
     assert torch.equal(tiled_degrees(dense, w, n_nodes=n), tiled_degrees(base, w, n_nodes=n))
 
 
+def _k1_ragged(counts, targets, tile_size, device, offset=0, seed=0, integer=True):
+    """A hand-made ragged layout on ``device`` (tile i holds counts[i]
+    slots, targets cut in order, slot s reads edge s) and its weights.
+    ``offset`` > 0 hands the kernel views that start ``4*offset`` bytes
+    past a 16-byte boundary."""
+    rng = np.random.default_rng(seed)
+    s = int(np.sum(counts))
+    ptr = torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int64, device=device)
+    tl = torch.zeros(s + offset, dtype=torch.int32, device=device)
+    tl[offset:] = torch.as_tensor(np.asarray(targets, np.int32), device=device)
+    ei = torch.arange(-offset, s, dtype=torch.int32, device=device)
+    t = TiledEdges.from_ragged(ptr, tl[offset:], torch.zeros(s, dtype=torch.int32, device=device),
+                               ei[offset:], tile_size=tile_size, n_nodes=len(counts) * tile_size,
+                               n_edges=s)
+    w = rng.integers(0, 4, s) if integer else rng.random(s)
+    return t, torch.from_numpy(w.astype(np.float32)).to(device)
+
+
+def _k1_cases(device):
+    """(name, tiling, integer weights) of the layouts the redesign must get right."""
+    rng = np.random.default_rng(5)
+    lens = [3, 5, 130, 1500, 1, 7, 300, 2049, 4, 129, 128]  # across a lane, a step, a chunk
+    runs = np.repeat(np.arange(len(lens)) * 7 % 64, lens)
+    cases = {
+        "runs": _k1_ragged([1, len(runs) - 1], runs, 64, device),
+        "runs_misaligned_view": _k1_ragged([3, len(runs) - 3], runs, 64, device, offset=1),
+        "one_node": _k1_ragged([0, 50_000, 3], [5] * 50_000 + [1, 1, 2], 64, device),
+    }
+    cs = 1024  # chunk_slots_for any slot count below 1M
+    for extra in (0, 1):
+        n = 3000
+        cases[f"tile_at_chunk_plus{extra}"] = _k1_ragged(
+            [7, cs + extra, n - 10 - cs - extra, 3], rng.integers(0, 64, n), 64, device)
+    for tile_size in (1024, 20_000, 58_112):  # 8, 2 and 1 histogram copies
+        n = 3 * tile_size - 5
+        src = rng.integers(0, n, 200_000).astype(np.int32)
+        dst = np.sort(rng.integers(0, n, 200_000)).astype(np.int32)
+        t = _tiling(src, dst, n, tile_size, device)
+        w = torch.from_numpy(rng.integers(0, 4, 200_000).astype(np.float32)).to(device)
+        cases[f"tile_size_{tile_size}"] = (t, w)
+    return cases
+
+
+K1_CASES = ["runs", "runs_misaligned_view", "one_node", "tile_at_chunk_plus0",
+            "tile_at_chunk_plus1", "tile_size_1024", "tile_size_20000", "tile_size_58112"]
+
+
+@pytest.mark.parametrize("name", K1_CASES)
+def test_k1_redesign_cases(cuda, name):
+    """Integer weights bitwise, twice; float weights within rtol = atol =
+    1e-5 of the plain version in float64."""
+    t, w = _k1_cases(cuda)[name]
+    want = tiled_degrees_ref(t, w)[: t.n_nodes]
+    first = tiled_degrees(t, w, n_nodes=t.n_nodes)
+    second = tiled_degrees(t, w, n_nodes=t.n_nodes)
+    torch.cuda.synchronize()
+    assert torch.equal(first, want) and torch.equal(second, want)
+    wf = torch.from_numpy(np.random.default_rng(2).random(w.shape[0]).astype(np.float32)).to(cuda)
+    got = tiled_degrees(t, wf, n_nodes=t.n_nodes)
+    torch.testing.assert_close(got, tiled_degrees_ref(t, wf.double())[: t.n_nodes].float(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_k1_plan_is_built_without_a_sync(cuda):
+    rng = np.random.default_rng(0)
+    src = torch.from_numpy(rng.integers(0, 50_000, 300_000).astype(np.int32)).to(cuda)
+    dst = torch.from_numpy(rng.integers(0, 50_000, 300_000).astype(np.int32)).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t = bucket_edges_by_tile(src, dst, 50_000, tile_size=1024)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    w = torch.ones(300_000, device=cuda)
+    assert torch.equal(tiled_degrees(t, w, n_nodes=50_000), tiled_degrees_ref(t, w)[:50_000])
+
+
 @pytest.mark.parametrize("compaction", ["off", "geometric", "twophase"])
 def test_solve_on_card_equals_cpu(cuda, compaction):
     answers = []

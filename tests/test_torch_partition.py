@@ -93,16 +93,22 @@ def test_to_dense_matches_reference(name, block, pow2_pad, tile_size):
 
 
 def test_chunk_list_covers_every_slot_once():
-    """Each tile's slot range is cut into CHUNK_SLOTS pieces; together the
-    chunks cover every slot exactly once (a hub tile spans many chunks)."""
+    """Each tile's slot range is cut into ``chunk_slots`` pieces; together
+    the real chunks cover every slot exactly once (a hub tile spans many
+    chunks), and the plan's padding entries (tile -1) cover none."""
     e = gen.chung_lu_power_law(30000, avg_deg=8, seed=0, device="cpu")
     tiled = part.bucket_edges_by_tile(e.src, e.dst, e.n_nodes, tile_size=1024)
     ptr = tiled.tile_ptr.numpy()
-    assert np.diff(ptr).max() > part.CHUNK_SLOTS  # the hub tile needs >1 chunk
+    cs = tiled.chunk_slots
+    assert cs == part.chunk_slots_for(tiled.n_slots)
+    assert np.diff(ptr).max() > cs  # the hub tile needs >1 chunk
+    assert tiled.chunk_tile.numel() == tiled.n_tiles + -(-tiled.n_slots // cs)
     covered = np.zeros(tiled.n_slots, np.int64)
     for tile, start in zip(tiled.chunk_tile.numpy(), tiled.chunk_start.numpy()):
-        stop = min(start + part.CHUNK_SLOTS, ptr[tile + 1])
-        assert ptr[tile] <= start < stop
+        if tile < 0:
+            continue
+        stop = min(start + cs, ptr[tile + 1])
+        assert ptr[tile] <= start <= stop and (start < stop or ptr[tile] == ptr[tile + 1])
         covered[start:stop] += 1
     np.testing.assert_array_equal(covered, 1)
 
