@@ -5,7 +5,7 @@
 
 Builds the port's four CUDA kernels from the sources in this checkout (one
 ``nvcc`` each, all started together), holds each against its plain PyTorch
-version on the card, then drives the port's four paths through the
+version on the card, then drives the port's five paths through the
 entry points a user calls:
 
 * Algorithm 1 on the geometric ladder, ``solve(edges,
@@ -17,6 +17,13 @@ entry points a user calls:
   68.9M edges drawn, Chung-Lu exponent 2.2, seed 0);
 * the turnstile runtime, ``TurnstileDensest`` (K3, the l0-sketch update;
   K1 again on the sample peel), on a churn stream over the FLICKR graph;
+* Algorithms 2 and 3 and the sweep driver (K1 and K2 again): at_least_k
+  with k=100,000 on the FLICKR graph (pallas against exact), a 3-lane eps
+  sweep under pallas (each lane against its standalone solve), the c grid
+  and a 41-lane c sweep on a planted 2,000 x 500 S->T block in a directed
+  graph of FLICKR's scale, and the directed ``backend='auto'`` (sketch)
+  query on the same generator at LIVEJOURNAL's scale, against the peel
+  over the plain counters;
 * the LM path at the full width of llama3.2-3b (28 layers, random weights
   from a seeded ``torch.Generator``): ``prefill`` of an 8,192-token prompt
   with ``attn_impl='pallas'`` (K4, flash attention, once per layer)
@@ -423,16 +430,21 @@ def phase_kernel(flickr) -> dict:
     }
 
 
-def _same_answer(what: str, a, b) -> None:
+OUTCOME_FIELDS = ("best_alive", "best_t", "best_density", "best_size", "alive", "t_alive",
+                  "history_n", "history_m", "history_rho")
+
+
+def _same_outcome(what: str, a, b, lane=None) -> None:
+    """Every outcome field bitwise (lane ``lane`` of ``a`` if given)."""
     import torch
 
-    for f in ("best_alive", "best_density", "best_size", "alive",
-              "history_n", "history_m", "history_rho"):
-        x, y = getattr(a, f), getattr(b, f)
-        if not torch.equal(x.cpu(), y.cpu()):
+    for f in OUTCOME_FIELDS:
+        x = getattr(a, f) if lane is None else getattr(a, f)[lane]
+        if not torch.equal(x.cpu(), getattr(b, f).cpu()):
             raise AssertionError(f"{what}: {f} differs")
-    if a.passes != b.passes:
-        raise AssertionError(f"{what}: passes {a.passes} != {b.passes}")
+    passes = a.passes if lane is None else a.passes[lane]
+    if passes != b.passes:
+        raise AssertionError(f"{what}: passes {passes} != {b.passes}")
 
 
 def _golden_check(name: str, backend: str, res) -> None:
@@ -466,7 +478,7 @@ def phase_quickstart() -> None:
                 answers[dev, backend] = res
         ref = answers[DEV, "pallas"]
         for key, res in answers.items():
-            _same_answer(f"{name} cuda/pallas vs {key}", ref, res)
+            _same_outcome(f"{name} cuda/pallas vs {key}", ref, res)
         for backend in golden.BACKENDS:
             _golden_check(name, backend, answers[DEV, backend])
         extra = {}
@@ -514,7 +526,7 @@ def phase_flickr(flickr) -> dict:
             print("  segments: " + json.dumps(
                 [{k: s[k] for k in ("n_buf", "m_buf", "passes")} for s in segs]), flush=True)
     (res_p, launches_p), (res_e, launches_e) = runs["pallas"], runs["exact"]
-    _same_answer("flickr pallas vs exact", res_p, res_e)
+    _same_outcome("flickr pallas vs exact", res_p, res_e)
     if launches_p != res_p.passes or launches_e != 0:
         raise AssertionError(
             f"kernel launches {launches_p} (pallas) / {launches_e} (exact) "
@@ -837,7 +849,7 @@ def phase_livejournal(lj) -> dict:
                      track_history=True)
     if cs_ops.count_sketch_update.launches != before:
         raise AssertionError("the plain-counter peel launched K2")
-    _same_answer("livejournal sketch (K2) vs plain counters", res, plain)
+    _same_outcome("livejournal sketch (K2) vs plain counters", res, plain)
     log("livejournal", equal="K2 solve == plain-counter solve bitwise "
         "(sets, density, passes, history)", passes=plain.passes)
 
@@ -1121,6 +1133,217 @@ def phase_golden_sketch_turnstile() -> None:
             shown = ("best_size", "passes", "level")
             log("golden", graph=name, cell=cell, equal="JAX golden",
                 **{k: got[k] for k in shown if k in got})
+
+
+# -- Algorithms 2 and 3 and the sweep driver, through K1 and K2 ---------------
+
+# Algorithm 2's size floor at flickr_sm: the undirected best set there is a
+# few thousand nodes, so k binds.
+TOPK_K = 100_000
+SWEEP_EPS = [0.25, 0.5, 1.0]
+# A planted S->T block (2,000 x 500 pairs, each kept with p 0.2: ~200k
+# edges) in a directed ER background at flickr_sm's scale (7.6M edges) and
+# at livejournal_md's (68.9M edges).
+DIRECTED_FLICKR = dict(n=976_000, avg_deg=7.8, ks=2_000, kt=500, p_dense=0.2, seed=0)
+DIRECTED_LJ = dict(n=4_840_000, avg_deg=14.24, ks=2_000, kt=500, p_dense=0.2, seed=0)
+DIRECTED_C = 4.0
+def phase_topk(flickr) -> None:
+    """Algorithm 2 on flickr_sm through the ladder: ``backend='pallas'``
+    (K1 once a pass) == ``'exact'`` bitwise, and the best set has at least
+    k nodes."""
+    from repro_torch.core import Problem, solve
+    from repro_torch.kernels.peel_degree.ops import tiled_degrees
+
+    runs = {}
+    for backend in ("pallas", "exact"):
+        prob = Problem.at_least_k(k=TOPK_K, eps=EPS, backend=backend, track_history=True)
+        tiled_degrees.launches = 0
+        res, wall, syncs, peak = _peak_run(lambda: solve(flickr, prob))
+        launches = tiled_degrees.launches
+        runs[backend] = (res, launches)
+        log("topk", backend=backend, k=TOPK_K, wall_ms=wall, passes=res.passes,
+            segments=len(res.extras["compaction"]["segments"]), host_syncs=syncs,
+            k1_launches=launches, peak_above_graph_mb=peak, rho=float(res.best_density),
+            size=int(res.best_size))
+    (res_p, launches_p), (res_e, launches_e) = runs["pallas"], runs["exact"]
+    _same_outcome("topk pallas vs exact", res_p, res_e)
+    if launches_p != res_p.passes or launches_e != 0:
+        raise AssertionError(f"K1 launches {launches_p} (pallas) / {launches_e} (exact) "
+                             f"for {res_p.passes} passes")
+    if int(res_p.best_size) < TOPK_K:
+        raise AssertionError(f"at_least_k best set {int(res_p.best_size)} < k={TOPK_K}")
+    log("topk", equal="pallas == exact bitwise (sets, density, passes, history)",
+        best_size=int(res_p.best_size), k=TOPK_K, k1_launches=launches_p)
+    phase_profile("flickr_topk_pallas", lambda: solve(flickr, Problem.at_least_k(
+        k=TOPK_K, eps=EPS, backend="pallas")))
+
+
+def phase_sweep(flickr) -> None:
+    """An eps sweep on flickr_sm under ``'pallas'``: one peel loop for all
+    lanes, K1 once per live lane a pass, one host sync a pass; each lane
+    bitwise equal to a standalone solve (the ladder) at its eps."""
+    from repro_torch.core import Problem, solve, solve_batch
+    from repro_torch.kernels.peel_degree.ops import tiled_degrees
+
+    prob = Problem.undirected(backend="pallas", track_history=True)
+    tiled_degrees.launches = 0
+    sweep, wall, syncs, peak = _peak_run(lambda: solve_batch(flickr, prob, eps=SWEEP_EPS))
+    launches = tiled_degrees.launches
+    mp = sweep.provenance.max_passes
+    if launches != sum(sweep.passes):
+        raise AssertionError(f"K1 launches {launches} != lanes' passes {sweep.passes}")
+    if syncs > max(sweep.passes) + 2:
+        raise AssertionError(f"{syncs} host syncs for lanes of {sweep.passes} passes")
+    log("sweep", eps=SWEEP_EPS, wall_ms=wall, passes=sweep.passes, max_passes=mp,
+        host_syncs=syncs, k1_launches=launches, peak_above_graph_mb=peak,
+        rho=[float(x) for x in sweep.best_density], size=[int(x) for x in sweep.best_size])
+    walls = []
+    for i, e in enumerate(SWEEP_EPS):
+        one, wall_1, _, _ = _peak_run(lambda: solve(flickr, Problem.undirected(
+            eps=e, backend="pallas", track_history=True, max_passes=mp)))
+        walls.append(wall_1)
+        _same_outcome(f"sweep lane eps={e} vs standalone", sweep, one, lane=i)
+    log("sweep", equal="every lane == its standalone solve bitwise", standalone_wall_ms=walls)
+    phase_profile("flickr_eps_sweep_pallas", lambda: solve_batch(flickr, prob, eps=SWEEP_EPS))
+
+
+def _block_density(edges, s_ids, t_ids) -> float:
+    """|E(S*, T*)| / sqrt(|S*||T*|) of the planted block (ids are ranges)."""
+    import math
+
+    s0, s1 = int(s_ids[0]), int(s_ids[-1]) + 1
+    t0, t1 = int(t_ids[0]), int(t_ids[-1]) + 1
+    inside = (edges.mask & (edges.src >= s0) & (edges.src < s1)
+              & (edges.dst >= t0) & (edges.dst < t1))
+    return int(inside.sum().item()) / math.sqrt(len(s_ids) * len(t_ids))
+
+
+def phase_directed() -> None:
+    """Algorithm 3 on the planted S->T block at flickr_sm's scale: the
+    41-value c grid (delta 2) through the ladder with exact degrees, the
+    block recovered (>= 70% of S* and of T*, density >= the block's /
+    (2(1+eps)delta)); then ``solve_batch(c=grid)``, each lane bitwise equal
+    to that c's standalone solve."""
+    import numpy as np
+
+    from repro_torch.core import Problem, solve, solve_batch
+    from repro_torch.graph import generators
+
+    t0 = time.perf_counter()
+    dg, s_ids, t_ids = generators.directed_planted(**DIRECTED_FLICKR, device=DEV)
+    log("directed.graph", nodes=dg.n_nodes, edges=dg.n_edges_padded,
+        gen_seconds=round(time.perf_counter() - t0, 3))
+    prob = Problem.directed(eps=EPS)
+    res, wall, syncs, peak = _peak_run(lambda: solve(dg, prob))
+    ex = res.extras
+    grid = ex["c_grid"]
+    s_rec = len(np.intersect1d(res.nodes(), s_ids)) / len(s_ids)
+    t_rec = len(np.intersect1d(res.t_nodes(), t_ids)) / len(t_ids)
+    block = _block_density(dg, s_ids, t_ids)
+    floor = block / (2 * (1 + EPS) * prob.c_delta)
+    log("directed", grid_size=len(grid), best_c=ex["best_c"], wall_ms=wall,
+        passes_per_c=[int(x) for x in ex["c_passes"]], host_syncs=syncs,
+        peak_above_graph_mb=peak, rho=float(res.best_density), s_size=len(res.nodes()),
+        t_size=len(res.t_nodes()), recall_s=s_rec, recall_t=t_rec, block_density=block)
+    if s_rec < 0.7 or t_rec < 0.7:
+        raise AssertionError(f"planted block recall S {s_rec}, T {t_rec} < 0.7")
+    if float(res.best_density) < floor:
+        raise AssertionError(f"best density {float(res.best_density)} < block/6 = {floor}")
+    sweep, wall_s, syncs_s, peak_s = _peak_run(lambda: solve_batch(dg, prob, c=grid))
+    log("directed.sweep", lanes=len(grid), wall_ms=wall_s, passes=sweep.passes,
+        host_syncs=syncs_s, peak_above_graph_mb=peak_s)
+    if syncs_s > max(sweep.passes) + 2:
+        raise AssertionError(f"{syncs_s} host syncs for lanes of {sweep.passes} passes")
+    for i, c in enumerate(grid):
+        one = solve(dg, Problem.directed(c=float(c), eps=EPS, track_history=False))
+        _same_outcome(f"c sweep lane c={c} vs its solve", sweep, one, lane=i)
+        if float(one.best_density) != ex["c_density"][i] or one.passes != ex["c_passes"][i]:
+            raise AssertionError(f"c={c}: solve differs from the grid's per-c solve")
+    best = int(np.argmax(sweep.best_density.cpu().numpy()))
+    log("directed", equal="every c lane == its per-c solve (== the grid's) bitwise",
+        sweep_best_c=float(grid[best]), grid_best_c=ex["best_c"])
+    phase_profile("directed_c_grid", lambda: solve(dg, prob))
+    phase_profile("directed_c_sweep", lambda: solve_batch(dg, prob, c=grid))
+
+
+def phase_directed_sketch() -> None:
+    """Algorithm 3 at livejournal_md's scale (68.9M edges drawn) through
+    ``backend='auto'`` (the Count-Sketch above 1M nodes): two K2 launches a
+    pass (out and in tables), and the answer equals the same peel over the
+    plain counters bit for bit while every counter's partial sums stay
+    within 2^24."""
+    import torch
+
+    from repro_torch.core import Problem, solve
+    from repro_torch.core.countsketch import (
+        _estimates, _query_index, make_sketch_params, median_over_tables,
+    )
+    from repro_torch.core.engine import DirectedST, run_peel
+    from repro_torch.graph import generators
+    from repro_torch.kernels.count_sketch import ops as cs_ops
+    from repro_torch.kernels.count_sketch.ref import count_sketch_update_ref
+
+    t_phase = time.perf_counter()
+    dl, s_ids, t_ids = generators.directed_planted(**DIRECTED_LJ, device=DEV)
+    log("directed.sketch.graph", nodes=dl.n_nodes, edges=dl.n_edges_padded,
+        gen_seconds=round(time.perf_counter() - t_phase, 3))
+    prob = Problem.directed(c=DIRECTED_C, eps=EPS, backend="auto", track_history=True)
+    cs_ops.count_sketch_update.launches = 0
+    res, wall, syncs, peak = _peak_run(lambda: solve(dl, prob))
+    launches = cs_ops.count_sketch_update.launches
+    if res.provenance.backend != "sketch" or res.provenance.compaction != "off":
+        raise AssertionError(f"auto resolved to {res.provenance}")
+    if launches != 2 * res.passes:
+        raise AssertionError(f"K2 launches {launches} != 2 x passes {res.passes}")
+    log("directed.sketch", backend="auto->sketch", c=DIRECTED_C, wall_ms=wall,
+        passes=res.passes, host_syncs=syncs, k2_launches=launches, peak_above_graph_mb=peak,
+        rho=float(res.best_density), s_size=int(res.best_size),
+        t_size=int(res.best_t.sum()))
+
+    p = make_sketch_params(prob.sketch_tables, prob.sketch_buckets, prob.sketch_seed)
+    index = _query_index(p, torch.arange(dl.n_nodes, dtype=torch.int32, device=DEV))
+    # Each counter's absolute mass at pass 0 (every edge alive, unit
+    # weights) bounds its partial sums in every pass.
+    most = 0
+    for ids in (dl.src[dl.mask].long(), dl.dst[dl.mask].long()):
+        for row in index[0]:
+            most = max(most, int(torch.bincount(row[ids]).max().item()))
+    if most > 2**24:
+        raise AssertionError(f"a counter's mass {most} passes 2^24: not bitwise")
+
+    class PlainCounters:
+        def directed(self, edges, w_alive):
+            c_out = count_sketch_update_ref(edges.src, w_alive, p)
+            c_in = count_sketch_update_ref(edges.dst, w_alive, p)
+            return (median_over_tables(_estimates(c_out, *index)),
+                    median_over_tables(_estimates(c_in, *index)), w_alive.sum())
+
+    before = cs_ops.count_sketch_update.launches
+    plain = run_peel(dl, DirectedST(eps=EPS, c=torch.tensor(DIRECTED_C)), PlainCounters(),
+                     prob.resolved_max_passes(dl.n_nodes), track_history=True)
+    if cs_ops.count_sketch_update.launches != before:
+        raise AssertionError("the plain-counter peel launched K2")
+    _same_outcome("directed sketch (K2) vs plain counters", res, plain)
+    log("directed.sketch", equal="K2 solve == plain-counter solve bitwise (S, T, density, "
+        "passes, history)", max_counter_mass=most)
+    phase_profile("directed_auto_sketch", lambda: solve(dl, prob))
+    log("directed.sketch", phase_seconds=round(time.perf_counter() - t_phase, 3))
+
+
+def phase_golden_objectives() -> None:
+    """Algorithms 2 and 3 and an eps sweep on the card meet the JAX golden
+    fixture's ``objectives`` entries."""
+    import torch_port_golden as golden
+
+    with open(golden.GOLDEN) as f:
+        fixture = json.load(f)["objectives"]["answers"]
+    for case in golden.OBJECTIVE_CASES:
+        got = golden.port_objective_entry(case, DEV)
+        if got != fixture[case]:
+            raise AssertionError(f"{case}: {got} != JAX golden {fixture[case]}")
+        first = got[0] if isinstance(got, list) else got
+        log("golden", case=case, equal="JAX golden", best_size=first["best_size"],
+            passes=[g["passes"] for g in got] if isinstance(got, list) else first["passes"])
 
 
 # -- K4 and the LM path (llama3.2-3b at full width) ---------------------------
@@ -1525,8 +1748,16 @@ def main() -> int:
     k3 = phase_l0_kernel(flickr)
     k3.update(phase_turnstile(flickr))
     phase_golden_sketch_turnstile()
+    # Path 5: Algorithms 2 and 3 and the sweep driver through K1 and K2.
+    phase_topk(flickr)
+    phase_sweep(flickr)
     del flickr
     torch.cuda.empty_cache()
+    phase_directed()
+    torch.cuda.empty_cache()
+    phase_directed_sketch()
+    torch.cuda.empty_cache()
+    phase_golden_objectives()
     # Path 4: the LM at full width through K4 (llama3.2-3b).
     from repro_torch.models.transformer import init_params, prefill
 

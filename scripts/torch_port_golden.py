@@ -17,6 +17,19 @@ decoded at.  ``chip_smoke.py`` holds the port's CUDA answers against it,
 and ``tests/test_torch_golden.py`` recomputes it, so the file cannot go
 stale.
 
+The ``objectives`` section holds Algorithms 2 and 3 and one sweep, each
+case named ``<objective>.<graph>[.<backend>]``: ``at_least_k`` with k=60
+on the quickstart graph and k=20,000 on the 200k graph (exact and pallas,
+the 200k pallas entry through K1's jnp oracle as above); ``directed`` on a
+seeded ``directed_planted`` graph of 20,000 nodes with a fixed c=4.0 and
+with the c grid (``best_c`` and the passes of each c added); and a 3-lane
+``solve_batch`` eps sweep [0.25, 0.5, 1.0] on the quickstart graph under
+``backend='pallas'``, one record a lane.  A directed record adds
+``t_size``, the sha256 of ``best_t`` and ``edges_in`` = |E(S, T)|, and
+its ``best_density_f32`` is recomputed from the reference's sets in IEEE
+float32 (``edges_in / sqrt(|S|·|T|)``): XLA's CPU code multiplies by an
+approximate rsqrt, within 1 ulp of that value, while the port divides.
+
 The ``lm`` section holds the reference LM's answers on the REDUCED
 llama3.2-3b at ``compute_dtype=float32``, with parameters drawn by numpy
 from seed 0 (:func:`lm_params`, the same arrays for both packages), for two
@@ -56,6 +69,15 @@ GRAPHS = {
     "chung_lu_200k": ("chung_lu_power_law", dict(n=200_000, seed=0)),
 }
 ORACLE_TILE = 65536
+AT_LEAST_K = {"quickstart": 60, "chung_lu_200k": 20_000}
+DIRECTED_GRAPH = ("directed_planted",
+                  dict(n=20_000, avg_deg=5.0, ks=200, kt=50, p_dense=0.3, seed=0))
+DIRECTED_C = 4.0
+SWEEP_EPS = (0.25, 0.5, 1.0)
+OBJECTIVE_CASES = tuple(
+    [f"at_least_k.{g}.{b}" for g in AT_LEAST_K for b in BACKENDS]
+    + ["directed.fixed_c", "directed.grid", "sweep.quickstart"]
+)
 
 
 def f32_hex(x) -> str:
@@ -173,6 +195,97 @@ def port_entry(edges, cell: str) -> dict:
         extra = turnstile_extra(td.sketch.tables.cpu().numpy(), sample, level)
     return record(res.best_alive.cpu().numpy(), res.best_density.cpu().numpy(),
                   res.best_size.cpu(), res.passes, **extra)
+
+
+# -- the objectives entries (Algorithms 2 and 3, one sweep) -------------------
+
+
+def directed_record(src, dst, best_s, best_t, passes, density=None, **extra) -> dict:
+    """A directed entry from host arrays of the real edges and the best
+    pair; ``density`` None recomputes it in IEEE float32 from the sets."""
+    s, t = np.asarray(best_s, bool), np.asarray(best_t, bool)
+    m_in = int(np.sum(s[src] & t[dst]))
+    ns, nt = int(s.sum()), int(t.sum())
+    if density is None:
+        density = np.float32(m_in) / np.sqrt(np.float32(max(ns, 1)) * np.float32(max(nt, 1)))
+    return {
+        "best_size": ns, "t_size": nt, "edges_in": m_in, "passes": int(passes),
+        "best_density_f32": f32_hex(density), "best_alive_sha256": bitmap_sha256(s),
+        "best_t_sha256": bitmap_sha256(t), **extra,
+    }
+
+
+def _grid_extra(res) -> dict:
+    return {"best_c": float(res.extras["best_c"]),
+            "c_passes": [int(p) for p in res.extras["c_passes"]]}
+
+
+def reference_objective_entry(case: str):
+    """One objectives entry, computed by the JAX package."""
+    from repro.core import Problem, solve, solve_batch
+
+    kind, rest = case.split(".", 1)
+    if kind == "at_least_k":
+        name, backend = rest.split(".")
+        edges = make_graph(name)
+        prob = Problem.at_least_k(k=AT_LEAST_K[name], eps=EPS, backend=backend)
+        if backend == "pallas" and name == "chung_lu_200k":
+            from repro.kernels.peel_degree.ops import degree_fn_from_tiling, tiling_for_edges
+
+            tiled = tiling_for_edges(edges, tile_size=ORACLE_TILE, block=512)
+            res = solve(edges, Problem.at_least_k(k=AT_LEAST_K[name], eps=EPS),
+                        degree_fn=degree_fn_from_tiling(tiled, use_pallas=False))
+        else:
+            res = solve(edges, prob)
+        return record(res.best_alive, res.best_density, res.best_size, res.passes)
+    if kind == "directed":
+        from repro.graph import generators
+
+        gen, kw = DIRECTED_GRAPH
+        edges = getattr(generators, gen)(**kw)[0]
+        c = DIRECTED_C if rest == "fixed_c" else None
+        res = solve(edges, Problem.directed(c=c, eps=EPS))
+        mask = np.asarray(edges.mask)
+        extra = _grid_extra(res) if c is None else {}
+        return directed_record(np.asarray(edges.src)[mask], np.asarray(edges.dst)[mask],
+                               res.best_alive, res.best_t, res.passes, **extra)
+    edges = make_graph(rest)
+    res = solve_batch(edges, Problem.undirected(backend="pallas"), eps=list(SWEEP_EPS))
+    return [record(res.best_alive[i], res.best_density[i], res.best_size[i], res.passes[i])
+            for i in range(len(SWEEP_EPS))]
+
+
+def port_objective_entry(case: str, device):
+    """The port's answer for one objectives case on ``device``, in the
+    fixture's form (the directed density is the port's own value)."""
+    from repro_torch.core import Problem, solve, solve_batch
+    from repro_torch.graph import generators
+
+    def graph(name):
+        gen, kw = GRAPHS[name]
+        out = getattr(generators, gen)(**kw, device=device)
+        return out[0] if isinstance(out, tuple) else out
+
+    kind, rest = case.split(".", 1)
+    if kind == "at_least_k":
+        name, backend = rest.split(".")
+        res = solve(graph(name), Problem.at_least_k(k=AT_LEAST_K[name], eps=EPS,
+                                                    backend=backend))
+        return record(res.best_alive.cpu().numpy(), res.best_density.cpu().numpy(),
+                      res.best_size.cpu(), res.passes)
+    if kind == "directed":
+        gen, kw = DIRECTED_GRAPH
+        edges = getattr(generators, gen)(**kw, device=device)[0]
+        c = DIRECTED_C if rest == "fixed_c" else None
+        res = solve(edges, Problem.directed(c=c, eps=EPS))
+        mask = edges.mask.cpu().numpy()
+        extra = _grid_extra(res) if c is None else {}
+        return directed_record(edges.src.cpu().numpy()[mask], edges.dst.cpu().numpy()[mask],
+                               res.best_alive.cpu().numpy(), res.best_t.cpu().numpy(),
+                               res.passes, density=res.best_density.cpu().numpy(), **extra)
+    res = solve_batch(graph(rest), Problem.undirected(backend="pallas"), eps=list(SWEEP_EPS))
+    return [record(res.best_alive[i].cpu().numpy(), res.best_density[i].cpu().numpy(),
+                   res.best_size[i].cpu(), res.passes[i]) for i in range(len(SWEEP_EPS))]
 
 
 # -- the LM entries ----------------------------------------------------------
@@ -315,6 +428,13 @@ def compute() -> dict:
         "answers": {
             name: {cell: reference_entry(name, cell) for cell in CELLS} for name in GRAPHS
         },
+        "objectives": {
+            "at_least_k": {name: k for name, k in AT_LEAST_K.items()},
+            "directed": {"generator": DIRECTED_GRAPH[0], "kwargs": DIRECTED_GRAPH[1],
+                         "c": DIRECTED_C},
+            "sweep_eps": list(SWEEP_EPS),
+            "answers": {case: reference_objective_entry(case) for case in OBJECTIVE_CASES},
+        },
         "lm": {
             "arch": LM_ARCH, "seed": LM_SEED,
             "cases": {name: {**case, "prompt_lens": list(case["prompt_lens"])}
@@ -333,6 +453,7 @@ def main() -> int:
         f.write("\n")
     os.replace(tmp, GOLDEN)
     print(json.dumps(golden["answers"], indent=1, sort_keys=True))
+    print(json.dumps(golden["objectives"]["answers"], indent=1, sort_keys=True))
     for name, entry in golden["lm"]["answers"].items():
         print(name, "tokens", entry["tokens"], "least margin",
               min(min(m) for m in entry["margins"]))

@@ -1,32 +1,107 @@
-"""The port's core: the front door (api.py) over the peel engine (engine.py),
-the §5.1 Count-Sketch backend (countsketch.py) and the turnstile runtime
-(turnstile.py).
+"""The port's core: the front door (api.py) over the peel engine
+(engine.py), the §5.1 Count-Sketch backend (countsketch.py), the turnstile
+runtime (turnstile.py) and the numpy baselines (exact.py, charikar.py).
+The names match ``repro.core``'s for every ported part.
 
-    from repro_torch.core import Problem, solve
+    from repro_torch.core import Problem, solve, solve_batch
     res = solve(edges, Problem.undirected(eps=0.5, backend="pallas"))
+    res = solve(edges, Problem.at_least_k(k=100))
+    res = solve(edges, Problem.directed())           # the c grid
+    sweep = solve_batch(edges, Problem.undirected(), eps=[0.25, 0.5, 1.0])
 """
 
-from repro_torch.core.api import DenseSubgraphResult, Problem, Provenance, Solver, solve
+from repro_torch.core.api import (
+    DenseSubgraphResult,
+    Problem,
+    Provenance,
+    Solver,
+    default_solver,
+    run_cell,
+    solve,
+    solve_batch,
+    stack_graphs,
+)
+from repro_torch.core.charikar import charikar_greedy
 from repro_torch.core.countsketch import (
     SketchBackend,
     densest_subgraph_sketched,
     make_sketch_params,
     query_degrees,
     sketch_degrees_from_edges,
+    sketch_endpoint_counters,
+    sketched_degree_fn,
 )
+from repro_torch.core.density import density_of, max_passes_bound, undirected_stats
+from repro_torch.core.engine import (
+    AtLeastKFraction,
+    DirectedST,
+    ExactBackend,
+    FnBackend,
+    PeelOutcome,
+    PeelState,
+    UndirectedThreshold,
+    removal_threshold,
+    run_peel,
+    segment_degree_count,
+    undirected_pass_step,
+)
+from repro_torch.core.exact import (
+    densest_directed_brute,
+    densest_subgraph_brute,
+    densest_subgraph_exact,
+)
+from repro_torch.core.peel import densest_subgraph, densest_subgraph_sets
+from repro_torch.core.peel_directed import (
+    c_grid,
+    densest_directed_search,
+    densest_directed_search_vmapped,
+    densest_subgraph_directed,
+)
+from repro_torch.core.peel_topk import densest_subgraph_at_least_k
 from repro_torch.core.turnstile import TurnstileDensest, TurnstileSketch
 
 __all__ = [
+    "AtLeastKFraction",
     "DenseSubgraphResult",
+    "DirectedST",
+    "ExactBackend",
+    "FnBackend",
+    "PeelOutcome",
+    "PeelState",
     "Problem",
     "Provenance",
     "SketchBackend",
     "Solver",
     "TurnstileDensest",
     "TurnstileSketch",
+    "UndirectedThreshold",
+    "c_grid",
+    "charikar_greedy",
+    "default_solver",
+    "densest_directed_brute",
+    "densest_directed_search",
+    "densest_directed_search_vmapped",
+    "densest_subgraph",
+    "densest_subgraph_at_least_k",
+    "densest_subgraph_brute",
+    "densest_subgraph_directed",
+    "densest_subgraph_exact",
+    "densest_subgraph_sets",
     "densest_subgraph_sketched",
+    "density_of",
     "make_sketch_params",
+    "max_passes_bound",
     "query_degrees",
+    "removal_threshold",
+    "run_cell",
+    "run_peel",
+    "segment_degree_count",
     "sketch_degrees_from_edges",
+    "sketch_endpoint_counters",
+    "sketched_degree_fn",
     "solve",
+    "solve_batch",
+    "stack_graphs",
+    "undirected_pass_step",
+    "undirected_stats",
 ]

@@ -3,9 +3,13 @@
 :class:`Problem` is the reference's spec, field for field, with the same
 defaults and the same validation in :meth:`Problem.resolve`.  :func:`solve`
 / :class:`Solver` lower it onto the engine (core/engine.py) and run it on
-the graph's device.  Cells of this slice:
+the graph's device; :func:`solve_batch` runs eps, c and stacked-graph
+sweeps as one peel loop with a lane axis.  Cells of this slice:
 
     objective  undirected -> UndirectedThreshold(eps)             (Alg 1, §4.1)
+               at_least_k -> AtLeastKFraction(k, eps)             (Alg 2, §4.2)
+               directed   -> DirectedST(eps, c); c=None runs the
+                             geometric c grid                     (Alg 3, §4.3)
     backend    exact      -> ExactBackend (index_add_)
                pallas     -> the hand-written tiled-degree kernel (kernels/peel_degree)
                sketch     -> SketchBackend (§5.1), its counters built by the
@@ -15,16 +19,17 @@ the graph's device.  Cells of this slice:
     stream_mode turnstile -> core/turnstile.py: the ℓ0 sketch (kernels/l0_sampler)
                              and a peel of its recovered sample
 
-Every other cell resolves and validates exactly as in the reference, then
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
-The port keeps no program cache (PyTorch runs eagerly), so
-``Provenance.cache_hit`` is always False.
+The mesh, streaming and local substrates resolve and validate exactly as
+in the reference, then raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.  The port keeps no program cache (PyTorch runs
+eagerly), so ``Provenance.cache_hit`` is always False.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import math
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,6 +37,8 @@ import torch
 from repro_torch import constants, hostsync
 from repro_torch.core.density import max_passes_bound
 from repro_torch.core.engine import (
+    AtLeastKFraction,
+    DirectedST,
     ExactBackend,
     PeelOutcome,
     RemovalPolicy,
@@ -42,7 +49,10 @@ from repro_torch.core.engine import (
 from repro_torch.graph.edgelist import EdgeList
 from repro_torch.graph.partition import pow2_bucket
 
-__all__ = ["DenseSubgraphResult", "Problem", "Provenance", "Solver", "solve"]
+__all__ = [
+    "DenseSubgraphResult", "Problem", "Provenance", "Solver", "c_grid", "default_solver",
+    "run_cell", "solve", "solve_batch", "stack_graphs",
+]
 
 _OBJECTIVES = ("undirected", "at_least_k", "directed")
 _BACKENDS = ("exact", "sketch", "pallas", "auto")
@@ -69,8 +79,10 @@ class Problem:
     packages.  See the reference for the full field reference; what the
     port reads:
 
-    * ``objective``/``eps``/``max_passes``/``track_history`` — as in the
-      reference (only ``'undirected'`` is ported).
+    * ``objective``/``eps``/``k``/``c``/``c_delta``/``min_deg_fallback``/
+      ``ceil_count``/``max_passes``/``track_history`` — as in the reference
+      (all three objectives; ``c=None`` is the geometric c grid of ratio
+      ``c_delta``).
     * ``backend`` — ``'exact'`` counts degrees with ``index_add_``;
       ``'pallas'`` means the hand-written tiled-degree kernel
       (kernels/peel_degree, CUDA on the card, its plain PyTorch version on
@@ -287,8 +299,6 @@ def _require_ported(prob: Problem) -> None:
         missing = "substrate='streaming' (ROADMAP Queue 1 item 5)"
     elif prob.substrate == "mesh":
         missing = "substrate='mesh' (ROADMAP Queue 1 item 6)"
-    elif prob.objective != "undirected":
-        missing = f"objective={prob.objective!r} (ROADMAP Queue 1 item 3)"
     if missing is not None:
         raise NotImplementedError(f"{missing} is not ported to PyTorch yet")
 
@@ -303,26 +313,41 @@ class Provenance:
     substrate: str
     n_nodes: int
     max_passes: int
-    batch: Optional[str] = None
+    batch: Optional[str] = None  # None | "eps" | "c" | "graphs"
     cache_hit: bool = False
     compaction: str = "off"
 
 
 @dataclasses.dataclass(frozen=True)
 class DenseSubgraphResult:
-    """The result of :func:`solve`: the engine's outcome tensors (on the
-    graph's device) plus the provenance of the cell that ran."""
+    """The result of :func:`solve` / :func:`solve_batch`: the engine's
+    outcome tensors (on the graph's device), in the reference's field
+    order, plus the provenance of the cell that ran.  A sweep's arrays have
+    a leading lane axis and ``passes`` is a list, one count a lane.
+    ``extras`` holds host data (the ladder's report, the c grid's
+    per-c profile)."""
 
-    best_alive: torch.Tensor  # bool[N] the output set S~
+    best_alive: torch.Tensor  # bool[N] the output set S~ (S side for directed)
+    best_t: torch.Tensor  # bool[N] T side (directed) | bool[0]
     best_density: torch.Tensor  # float32[] rho of the best set
     best_size: torch.Tensor  # int32[] |S~|
-    passes: int  # passes executed
+    passes: Union[int, List[int]]  # passes executed
     alive: torch.Tensor  # bool[N] final S bitmap
+    t_alive: torch.Tensor  # bool[N] final T bitmap | bool[0]
     history_n: torch.Tensor  # int32[hist] per-pass |S| (-1 padding)
     history_m: torch.Tensor  # float32[hist] per-pass alive edge weight
     history_rho: torch.Tensor  # float32[hist] per-pass rho
     extras: Optional[Dict[str, Any]] = None
     provenance: Optional[Provenance] = None
+
+    @property
+    def best_s(self) -> torch.Tensor:
+        """Directed-result spelling of the S-side best bitmap."""
+        return self.best_alive
+
+    @property
+    def mask(self) -> torch.Tensor:
+        return self.best_alive
 
     @classmethod
     def from_outcome(
@@ -334,17 +359,42 @@ class DenseSubgraphResult:
         return cls(*out, extras=extras, provenance=provenance)
 
     def nodes(self) -> np.ndarray:
-        """Node ids of the best set (host side)."""
+        """Node ids of the best set (S side for directed; host side)."""
         return np.nonzero(self.best_alive.cpu().numpy())[0]
+
+    def t_nodes(self) -> np.ndarray:
+        """Node ids of the best T side (directed results; host side)."""
+        return np.nonzero(self.best_t.cpu().numpy())[0]
 
     @property
     def density(self) -> float:
         return float(self.best_density)
 
 
-def _policy_for(problem: Problem) -> RemovalPolicy:
-    """Problem -> RemovalPolicy (Algorithm 1 is the only ported objective)."""
-    return UndirectedThreshold(problem.eps)
+def _policy_for(problem: Problem, *, eps: Any = None, c: Any = None) -> RemovalPolicy:
+    """Problem -> RemovalPolicy.  ``eps``/``c`` override the Problem's with
+    ``[B]`` f32 tensors on the graph's device in a sweep.  A fixed ``c``
+    becomes a 0-dim f32 CPU tensor: the reference's ``float32`` c, which
+    device ops take as a scalar argument (no copy to the card)."""
+    e = problem.eps if eps is None else eps
+    if problem.objective == "undirected":
+        return UndirectedThreshold(e)
+    if problem.objective == "at_least_k":
+        return AtLeastKFraction(
+            k=problem.k,
+            eps=e,
+            min_deg_fallback=problem.min_deg_fallback,
+            ceil_count=problem.ceil_count,
+        )
+    cc = problem.c if c is None else c
+    if cc is None:
+        raise ValueError(
+            "directed lowering needs a concrete or per-lane c; Problem.c=None "
+            "(grid search) is handled by solve()/solve_batch()"
+        )
+    if not isinstance(cc, torch.Tensor):
+        cc = torch.tensor(cc, dtype=torch.float32)
+    return DirectedST(eps=e, c=cc)
 
 
 def _backend_for(problem: Problem, edges: EdgeList):
@@ -370,6 +420,100 @@ def _backend_for(problem: Problem, edges: EdgeList):
     raise ValueError(f"unresolved backend {problem.backend!r}")
 
 
+def run_cell(
+    edges: EdgeList,
+    problem: Problem,
+    *,
+    eps: Any = None,
+    c: Any = None,
+    backend: Any = None,
+    max_passes: Optional[int] = None,
+    init_alive: Optional[torch.Tensor] = None,
+    init_t_alive: Optional[torch.Tensor] = None,
+    init_t: Optional[int] = None,
+    init_best_empty: bool = False,
+    compact_below: Optional[int] = None,
+    init_alive_edges: Union[int, torch.Tensor, None] = None,
+    init_ok_from_mask: bool = False,
+    lanes: Optional[int] = None,
+) -> PeelOutcome:
+    """One Problem cell -> ``run_peel``: the lowering every path of the
+    front door bottoms out in (the reference's ``run_cell``).  ``eps``/``c``
+    may be a sweep's ``[B]`` tensors (with ``lanes=B``); ``backend`` is a
+    DegreeBackend built once by the caller (a rung's tiling, the sketch's
+    cached query index, a ``degree_fn`` hook's ``FnBackend``).  The
+    segment controls are forwarded to
+    :func:`~repro_torch.core.engine.run_peel`; ``run_cell`` itself is one
+    segment (``Problem.compaction`` is ignored here)."""
+    prob = problem.resolve(edges.n_nodes)
+    mp = max_passes if max_passes is not None else prob.resolved_max_passes(edges.n_nodes)
+    if backend is None:
+        backend = _backend_for(prob, edges)
+    return run_peel(
+        edges, _policy_for(prob, eps=eps, c=c), backend, mp,
+        track_history=prob.track_history, init_alive=init_alive,
+        init_t_alive=init_t_alive, init_t=init_t, init_best_empty=init_best_empty,
+        compact_below=compact_below, init_alive_edges=init_alive_edges,
+        init_ok_from_mask=init_ok_from_mask, lanes=lanes,
+    )
+
+
+def c_grid(n_nodes: int, delta: float = 2.0) -> np.ndarray:
+    """Geometric grid of c = |S|/|T| guesses: delta^j covering [1/n, n]."""
+    j_max = int(math.ceil(math.log(max(n_nodes, 2)) / math.log(delta)))
+    return np.asarray([delta**j for j in range(-j_max, j_max + 1)], np.float32)
+
+
+def stack_graphs(graphs: Sequence[EdgeList]) -> EdgeList:
+    """Stacks same-shape EdgeLists along a leading lane axis for
+    :meth:`Solver.solve_batch` (which also accepts the sequence directly).
+    The result is a batched container: per-graph helpers that assume 1-D
+    edge arrays (``n_edges_padded``, ``with_padding``) don't apply to it."""
+    g0 = graphs[0]
+    for g in graphs[1:]:
+        if g.n_nodes != g0.n_nodes or g.n_edges_padded != g0.n_edges_padded:
+            raise ValueError(
+                "stacked sweeps need same-shape graphs: got "
+                f"(n={g.n_nodes}, E={g.n_edges_padded}) vs "
+                f"(n={g0.n_nodes}, E={g0.n_edges_padded})"
+            )
+        if g.directed != g0.directed:
+            raise ValueError("stacked sweeps need uniform directedness")
+    return EdgeList(
+        src=torch.stack([g.src for g in graphs]),
+        dst=torch.stack([g.dst for g in graphs]),
+        weight=torch.stack([g.weight for g in graphs]),
+        mask=torch.stack([g.mask for g in graphs]),
+        n_nodes=g0.n_nodes,
+        directed=g0.directed,
+    )
+
+
+def _host_keep_going(prob: Problem, n_s: int, n_t: int) -> bool:
+    """Host mirror of the policies' ``keep_going`` tests: the ladder asks it
+    whether a segment ended by termination or by its compaction trigger."""
+    if prob.objective == "at_least_k":
+        return n_s >= int(prob.k)
+    if prob.objective == "directed":
+        return n_s > 0 and n_t > 0
+    return n_s > 0
+
+
+def _policy_name(problem: Problem) -> str:
+    return {
+        "undirected": "undirected_threshold",
+        "at_least_k": "at_least_k_fraction",
+        "directed": "directed_st",
+    }[problem.objective]
+
+
+def _host_f32(values) -> np.ndarray:
+    """A sweep axis as a flat float32 host array (lists, numpy or tensors)."""
+    if isinstance(values, torch.Tensor):
+        values = values.detach().cpu().numpy()
+    return np.asarray(values, np.float32).reshape(-1)
+
+
 class Solver:
     """Runs Problems.  Stateless in the port: there is no program cache."""
 
@@ -379,6 +523,8 @@ class Solver:
             res = Solver().solve(edges, Problem.undirected(eps=0.5))
             rho = float(res.best_density)
             nodes = res.nodes()
+            res = Solver().solve(edges, Problem.directed())  # the c grid
+            res.extras["best_c"], res.t_nodes()
         """
         if not isinstance(graph, EdgeList):
             raise TypeError(f"solve() takes an EdgeList graph, got {type(graph).__name__}")
@@ -386,18 +532,57 @@ class Solver:
         _require_ported(prob)
         if prob.stream_mode == "turnstile":
             return self._solve_turnstile(graph, prob)
+        if prob.compaction in ("geometric", "twophase"):
+            return self._solve_compacted(graph, prob)
         n = graph.n_nodes
         mp = prob.resolved_max_passes(n)
-        if prob.compaction in ("geometric", "twophase"):
-            out, ladder = self._run_compacted(graph, prob)
-            return self._wrap(out, prob, n, mp, extras={"compaction": ladder})
         backend = _backend_for(prob, graph)
-        out = run_peel(graph, _policy_for(prob), backend, mp,
-                       track_history=prob.track_history)
+        if prob.objective == "directed" and prob.c is None:
+            return self._directed_grid(graph, prob, mp, lambda c: (
+                run_cell(graph, prob, c=c, backend=backend, max_passes=mp), None))
+        out = run_cell(graph, prob, backend=backend, max_passes=mp)
         return self._wrap(out, prob, n, mp)
 
+    def _directed_grid(self, graph: EdgeList, prob: Problem, mp: int, run) -> DenseSubgraphResult:
+        """The paper's practical directed recipe: the geometric c grid in a
+        host loop, ``run(c) -> (outcome, ladder report or None)`` a c.  The
+        best c is the first with the largest density (strict ``>``); its
+        ladder report, if any, goes into ``extras['compaction']``."""
+        grid = c_grid(graph.n_nodes, prob.c_delta)
+        best = best_c = best_ladder = None
+        best_rho = float("-inf")
+        rhos, passes = [], []
+        for cv in grid:
+            out, ladder = run(float(cv))
+            rho = hostsync.read(out.best_density)
+            rhos.append(rho)
+            passes.append(out.passes)
+            if best is None or rho > best_rho:
+                best, best_c, best_ladder, best_rho = out, float(cv), ladder, rho
+        extras = {
+            "best_c": best_c,
+            "c_grid": np.asarray(grid),
+            "c_density": np.asarray(rhos),
+            "c_passes": np.asarray(passes),
+        }
+        if best_ladder is not None:
+            extras["compaction"] = best_ladder
+        return self._wrap(best, prob, graph.n_nodes, mp, extras=extras)
+
+    def _solve_compacted(self, graph: EdgeList, prob: Problem) -> DenseSubgraphResult:
+        """solve() tail for ``compaction in ('geometric', 'twophase')``: the
+        ladder once, or once a c of the grid."""
+        n = graph.n_nodes
+        mp = prob.resolved_max_passes(n)
+        if prob.objective == "directed" and prob.c is None:
+            return self._directed_grid(
+                graph, prob, mp, lambda c: self._run_compacted(graph, prob, c))
+        c = prob.c if prob.objective == "directed" else None
+        out, ladder = self._run_compacted(graph, prob, c)
+        return self._wrap(out, prob, n, mp, extras={"compaction": ladder})
+
     def _run_compacted(
-        self, graph: EdgeList, prob: Problem
+        self, graph: EdgeList, prob: Problem, c: Optional[float] = None
     ) -> Tuple[PeelOutcome, Dict[str, Any]]:
         """The geometric-compaction ladder, on the graph's device: runs the
         engine loop in segments and gathers the survivors (edges and nodes)
@@ -405,32 +590,37 @@ class Solver:
         falls below half the current buffer.  The schedule is the
         reference's (``repro.core.api.Solver._run_compacted``): the same
         ``compact_below``, the same buckets, the strict ``>`` earliest-wins
-        merge of the best set and history indexed by absolute pass, so the
-        result is bit-identical to ``compaction='off'`` for integer-valued
-        weights.  ``'twophase'`` compacts once, after ``twophase_passes``.
+        merge of the best set(s) and history indexed by absolute pass, so
+        the result is bit-identical to ``compaction='off'`` for
+        integer-valued weights.  ``'twophase'`` compacts once, after
+        ``twophase_passes``.  A directed run renumbers S and T together: a
+        node alive on either side survives and keeps both bits.
 
         The gather and relabel are prefix sums on the device
         (:func:`~repro_torch.core.engine.compact_edges`), and so is the next
         rung's tiling; the host reads a few scalars per rung.
         """
         dev = graph.device
+        directed = prob.objective == "directed"
         n0 = graph.n_nodes
         mp = prob.resolved_max_passes(n0)
-        policy = _policy_for(prob)
         src, dst, w, msk = graph.src, graph.dst, graph.weight, graph.mask
         id_map = torch.arange(n0, device=dev)  # compact id -> original id
         n_cur = n0
         s_al = torch.ones(n0, dtype=torch.bool, device=dev)
+        t_al = s_al if directed else None
 
         hist_len = mp if prob.track_history else 1
         hist_n = torch.full((hist_len,), -1, dtype=torch.int32, device=dev)
         hist_m = torch.zeros(hist_len, dtype=torch.float32, device=dev)
         hist_rho = torch.zeros(hist_len, dtype=torch.float32, device=dev)
         best_rho = float("-inf")
-        best_density = torch.tensor(best_rho, dtype=torch.float32, device=dev)
-        # S_0 seeds the best set, as in the uncompacted loop.
+        best_density = torch.full((), best_rho, dtype=torch.float32, device=dev)
+        # S_0 (and T_0) seed the best set, as in the uncompacted loop.
         best_alive = torch.ones(n0, dtype=torch.bool, device=dev)
-        best_size = torch.tensor(0, dtype=torch.int32, device=dev)
+        empty = torch.zeros(0, dtype=torch.bool, device=dev)
+        best_t = best_alive if directed else empty
+        best_size = torch.zeros((), dtype=torch.int32, device=dev)
         t_done = 0
         segments = []
         slots_scanned = 0
@@ -438,6 +628,11 @@ class Solver:
         twophase = prob.compaction == "twophase"
         tp_k1 = min(int(prob.twophase_passes), mp)
         no_more_compact = False
+
+        def to_original(x: torch.Tensor) -> torch.Tensor:
+            full = torch.zeros(n0, dtype=torch.bool, device=dev)
+            full[id_map] = x[: len(id_map)]
+            return full
 
         for seg_idx in range(_COMPACT_MAX_SEGMENTS):
             seg_mp = tp_k1 if (twophase and seg_idx == 0) else mp
@@ -447,10 +642,9 @@ class Solver:
 
             edges = EdgeList(src=src, dst=dst, weight=w, mask=msk,
                              n_nodes=n_cur, directed=graph.directed)
-            backend = _backend_for(prob, edges)
-            out = run_peel(
-                edges, policy, backend, seg_mp, track_history=prob.track_history,
-                init_alive=s_al, init_t=t_done, init_best_empty=True,
+            out = run_cell(
+                edges, prob, c=c, backend=_backend_for(prob, edges), max_passes=seg_mp,
+                init_alive=s_al, init_t_alive=t_al, init_t=t_done, init_best_empty=True,
                 compact_below=compact_below, init_alive_edges=cur_alive_edges,
                 init_ok_from_mask=True,
             )
@@ -458,16 +652,22 @@ class Solver:
             # ---- fold the segment into the global answer ----
             t_prev, t_done = t_done, out.passes
             s_al = out.alive
-            ok_e = msk & s_al[src] & s_al[dst]
-            seg_rho, n_alive, e_alive = hostsync.read(torch.stack([
-                out.best_density.double(), s_al.sum().double(), ok_e.sum().double(),
-            ]))
-            n_alive, e_alive = int(n_alive), int(e_alive)
+            t_al = out.t_alive if directed else None
+            ta = t_al if directed else s_al
+            surv = (s_al | t_al) if directed else s_al
+            ok_e = msk & s_al[src] & ta[dst]
+            vals = [out.best_density, s_al.sum(), ok_e.sum()]
+            if directed:
+                vals += [t_al.sum(), surv.sum()]
+            got = hostsync.read(torch.stack([v.double() for v in vals]))
+            seg_rho, n_s, e_alive = got[0], int(got[1]), int(got[2])
+            n_t, n_alive = (int(got[3]), int(got[4])) if directed else (n_s, n_s)
             if seg_rho > best_rho:  # strict: the earliest pass wins ties
                 best_rho = seg_rho
                 best_density = out.best_density
-                best_alive = torch.zeros(n0, dtype=torch.bool, device=dev)
-                best_alive[id_map] = out.best_alive[: len(id_map)]
+                best_alive = to_original(out.best_alive)
+                if directed:
+                    best_t = to_original(out.best_t)
                 best_size = out.best_size
             if prob.track_history:
                 shn = out.history_n
@@ -487,7 +687,7 @@ class Solver:
             })
 
             # ---- terminated? ----
-            if t_done >= mp or n_alive == 0:
+            if t_done >= mp or not _host_keep_going(prob, n_s, n_t):
                 break
 
             # ---- compact survivors into the next bucket ----
@@ -496,28 +696,31 @@ class Solver:
             if new_m >= len(src) and new_n >= n_cur:
                 no_more_compact = True  # bucket floor: finish on this buffer
                 continue
-            relabel = torch.cumsum(s_al, 0, dtype=torch.int64) - 1  # keeps id order
+            relabel = torch.cumsum(surv, 0, dtype=torch.int64) - 1  # keeps id order
             src, dst, w = compact_edges(
                 ok_e, (relabel[src].to(torch.int32), relabel[dst].to(torch.int32), w),
                 new_m,
             )
             msk = torch.arange(new_m, device=dev) < e_alive
             # id_map covers the real ids only; pad nodes are never alive.
-            (id_map,) = compact_edges(s_al[: len(id_map)], (id_map,), n_alive)
-            s_al = torch.arange(new_n, device=dev) < n_alive
+            (id_map,) = compact_edges(surv[: len(id_map)], (id_map,), n_alive)
+            if directed:
+                s_al, t_al = compact_edges(surv, (s_al, t_al), new_n)
+            else:
+                s_al = torch.arange(new_n, device=dev) < n_alive
             n_cur = new_n
             cur_alive_edges = e_alive
         else:
             raise RuntimeError(f"compaction ladder exceeded {_COMPACT_MAX_SEGMENTS} segments")
 
-        alive_full = torch.zeros(n0, dtype=torch.bool, device=dev)
-        alive_full[id_map] = s_al[: len(id_map)]
         outcome = PeelOutcome(
             best_alive=best_alive,
+            best_t=best_t,
             best_density=best_density,
             best_size=best_size,
             passes=t_done,
-            alive=alive_full,
+            alive=to_original(s_al),
+            t_alive=to_original(t_al) if directed else empty,
             history_n=hist_n,
             history_m=hist_m,
             history_rho=hist_rho,
@@ -551,6 +754,112 @@ class Solver:
         td.apply(insert_edges=(graph.src[graph.mask], graph.dst[graph.mask]))
         return td.query()
 
+    def solve_batch(
+        self,
+        graph: Union[EdgeList, Sequence[EdgeList]],
+        problem: Problem,
+        *,
+        eps=None,
+        c=None,
+    ) -> DenseSubgraphResult:
+        """A whole sweep in one peel loop (the reference's batched driver)::
+
+            sweep = solver.solve_batch(
+                edges, Problem.undirected(max_passes=64), eps=[0.1, 0.5, 1.0]
+            )
+            sweep.best_density                 # float32[3], one per eps
+
+        Exactly one batch axis: ``eps=`` (eps values), ``c=`` (directed
+        ratio guesses), or a sequence of same-shape graphs (or a
+        :func:`stack_graphs` result).  Every array of the result gains a
+        leading lane axis; ``passes`` is one count a lane.  The loop runs to
+        the slowest lane with one host sync a pass for all lanes; a lane
+        stops changing once its own loop would have ended, so each lane is
+        bit-identical to its standalone solve (for eps values exactly
+        representable in float32).  Degrees: exact is one ``index_add_``
+        over all lanes; pallas launches the tiled-degree kernel once per
+        live lane on one tiling of the graph; sketch launches the
+        Count-Sketch kernel per live lane.
+
+        With ``max_passes=None`` the trip bound is taken at the loosest
+        point of the sweep (min eps).  Lanes share one buffer, so
+        ``compaction='auto'`` quietly resolves to off and an explicit
+        ladder raises.
+        """
+        stacked = isinstance(graph, (list, tuple)) or (
+            isinstance(graph, EdgeList) and graph.src.dim() == 2
+        )
+        if sum(x is not None for x in (eps, c)) + stacked != 1:
+            raise ValueError(
+                "solve_batch needs exactly one batch axis: eps=, c=, or "
+                "stacked same-shape graphs (a sequence or a stack_graphs result)"
+            )
+
+        def _resolve_batchable(n_nodes: int) -> Problem:
+            p = problem.resolve(n_nodes)
+            if p.stream_mode == "turnstile":
+                raise ValueError(
+                    "solve_batch sweeps are single vmapped programs; the "
+                    "turnstile runtime is a host update/query driver — "
+                    "query a live TurnstileDensest per sweep point instead"
+                )
+            if p.compaction != "off":
+                if problem.compaction == "auto":
+                    p = dataclasses.replace(p, compaction="off")
+                else:
+                    raise ValueError(
+                        "solve_batch sweeps share one vmapped program; "
+                        "per-lane compaction is not possible — use "
+                        "compaction='off' (or 'auto')"
+                    )
+            return p
+
+        if stacked:
+            batched = graph if isinstance(graph, EdgeList) else stack_graphs(list(graph))
+            prob = _resolve_batchable(batched.n_nodes)
+            if prob.substrate != "jit":
+                raise ValueError("solve_batch runs on the jit substrate")
+            if prob.backend == "pallas":
+                raise ValueError(
+                    "stacked-graph sweeps need a graph-independent backend "
+                    "(tile bucketing is per-graph); use exact or sketch"
+                )
+            if prob.objective == "directed" and prob.c is None:
+                raise ValueError("stacked directed sweeps need a fixed c")
+            mp = prob.resolved_max_passes(batched.n_nodes)
+            out = run_cell(batched, prob, max_passes=mp)
+            return self._wrap(out, prob, batched.n_nodes, mp, batch="graphs")
+
+        if not isinstance(graph, EdgeList):
+            raise TypeError(
+                f"solve_batch takes an EdgeList or a sequence, got {type(graph).__name__}"
+            )
+        prob = _resolve_batchable(graph.n_nodes)
+        if prob.substrate != "jit":
+            raise ValueError("solve_batch runs on the jit substrate")
+        n = graph.n_nodes
+
+        if eps is not None:
+            eps_host = _host_f32(eps)
+            if prob.max_passes is not None:
+                mp = int(prob.max_passes)
+            else:
+                loosest = dataclasses.replace(prob, eps=float(eps_host.min()))
+                mp = loosest.resolved_max_passes(n)
+            if prob.objective == "directed" and prob.c is None:
+                raise ValueError("eps sweeps over a directed Problem need a fixed c")
+            out = run_cell(graph, prob, eps=torch.from_numpy(eps_host).to(graph.device),
+                           max_passes=mp, lanes=len(eps_host))
+            return self._wrap(out, prob, n, mp, batch="eps")
+
+        if prob.objective != "directed":
+            raise ValueError("c sweeps only apply to the directed objective")
+        c_host = _host_f32(c)
+        mp = prob.resolved_max_passes(n)
+        out = run_cell(graph, prob, c=torch.from_numpy(c_host).to(graph.device),
+                       max_passes=mp, lanes=len(c_host))
+        return self._wrap(out, prob, n, mp, batch="c")
+
     def _wrap(
         self,
         out: PeelOutcome,
@@ -558,14 +867,16 @@ class Solver:
         n_nodes: int,
         mp: int,
         extras: Optional[Dict[str, Any]] = None,
+        batch: Optional[str] = None,
     ) -> DenseSubgraphResult:
         prov = Provenance(
             objective=problem.objective,
-            policy="undirected_threshold",
+            policy=_policy_name(problem),
             backend=problem.backend,
             substrate=problem.substrate,
             n_nodes=n_nodes,
             max_passes=mp,
+            batch=batch,
             compaction=problem.compaction,
         )
         return DenseSubgraphResult.from_outcome(out, provenance=prov, extras=extras)
@@ -577,3 +888,8 @@ default_solver = Solver()
 def solve(graph: EdgeList, problem: Problem) -> DenseSubgraphResult:
     """Module-level :meth:`Solver.solve`."""
     return default_solver.solve(graph, problem)
+
+
+def solve_batch(graph, problem: Problem, **kw) -> DenseSubgraphResult:
+    """Module-level :meth:`Solver.solve_batch`."""
+    return default_solver.solve_batch(graph, problem, **kw)

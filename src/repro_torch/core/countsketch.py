@@ -149,10 +149,12 @@ def query_degrees(p: SketchParams, counters: torch.Tensor, nodes: torch.Tensor) 
 class SketchBackend:
     """Engine ``DegreeBackend`` backed by the §5.1 Count-Sketch.
 
-    The hashes of the node ids ``0..n-1`` do not change from pass to pass,
-    so the backend keeps the last graph's query index (one ``[t, n]`` int64
-    and float32 pair) instead of hashing every node again each pass; the
-    estimates are the same bits as :func:`query_degrees`.
+    Undirected degrees use the shared two-endpoint counter table; the
+    directed rule keeps separate out and in tables.  The hashes of the node
+    ids ``0..n-1`` do not change from pass to pass, so the backend keeps
+    the last graph's query index (one ``[t, n]`` int64 and float32 pair)
+    instead of hashing every node again each pass; the estimates are the
+    same bits as :func:`query_degrees`.
     """
 
     def __init__(self, params: SketchParams):
@@ -166,16 +168,33 @@ class SketchBackend:
             self._index = {key: _query_index(self.params, nodes)}
         return self._index[key]
 
-    def undirected(self, edges: EdgeList, w_alive: torch.Tensor):
-        counters = sketch_degrees_from_edges(self.params, edges, w_alive)
-        flat, signs = self._node_index(edges.n_nodes, w_alive.device)
-        return median_over_tables(_estimates(counters, flat, signs)), w_alive.sum()
+    def _median(self, counters: torch.Tensor, n_nodes: int) -> torch.Tensor:
+        flat, signs = self._node_index(n_nodes, counters.device)
+        return median_over_tables(_estimates(counters, flat, signs))
 
-    def directed(self, edges: EdgeList, w_alive: torch.Tensor):
-        raise NotImplementedError(
-            "the directed Count-Sketch (separate out/in tables) waits for "
-            "objective='directed' (ROADMAP Queue 1 item 3)"
-        )
+    def undirected(self, edges: EdgeList, w_alive: torch.Tensor, lanes=None):
+        """One shared two-endpoint counter table (one K2 launch a lane)."""
+
+        def one(e, w):
+            return (self._median(sketch_degrees_from_edges(self.params, e, w), e.n_nodes),)
+
+        if lanes is None:
+            return one(edges, w_alive)[0], w_alive.sum()
+        return lanes.per_lane(w_alive, one)[0], w_alive.sum(-1)
+
+    def directed(self, edges: EdgeList, w_alive: torch.Tensor, lanes=None):
+        """Separate out and in tables (src endpoints only / dst endpoints
+        only), so each side's estimate stays unbiased: two K2 launches a
+        lane, and both medians share the cached query index."""
+
+        def one(e, w):
+            c_out = sketch_endpoint_counters(self.params, e.src, w)
+            c_in = sketch_endpoint_counters(self.params, e.dst, w)
+            return self._median(c_out, e.n_nodes), self._median(c_in, e.n_nodes)
+
+        if lanes is None:
+            return (*one(edges, w_alive), w_alive.sum())
+        return (*lanes.per_lane(w_alive, one), w_alive.sum(-1))
 
 
 def sketched_degree_fn(p: SketchParams):

@@ -5,9 +5,10 @@ from repro_torch.graph.edgelist import (
     from_numpy,
     from_reference,
     resolve_device,
+    to_csr,
 )
 
 __all__ = [
     "EdgeList", "apply_updates", "dedup_edges", "from_numpy", "from_reference",
-    "resolve_device",
+    "resolve_device", "to_csr",
 ]

@@ -207,6 +207,38 @@ def dedup_edges(
         lo = np.minimum(src, dst)
         hi = np.maximum(src, dst)
         src, dst = lo, hi
-    key = src * (dst.max(initial=0) + 1) + dst
-    _, idx = np.unique(key, return_index=True)
-    return src[idx].astype(np.int32), dst[idx].astype(np.int32)
+    # The reference keeps each key's first edge (``np.unique`` with
+    # ``return_index``, a stable argsort); the key is the edge itself, so
+    # the sorted distinct keys give the same arrays.  An in-place sort, not
+    # ``np.unique``: newer numpy finds unique values through a hash table,
+    # which is slower at tens of millions of edges.
+    base = dst.max(initial=0) + 1
+    key = src * base + dst
+    key.sort()
+    key = key[np.diff(key, prepend=-1) != 0]  # ids are >= 0: the first is kept
+    return (key // base).astype(np.int32), (key % base).astype(np.int32)
+
+
+def to_csr(edges: EdgeList, return_weights: bool = False):
+    """Host-side CSR ``(indptr, indices[, weights])`` over the symmetrized
+    adjacency (directed graphs: the out-adjacency), as numpy arrays, in the
+    reference's order: a stable sort by source, each undirected edge listed
+    under both endpoints.  ``return_weights`` adds each slot's weight."""
+    mask = edges.mask.cpu().numpy()
+    src = edges.src.cpu().numpy()[mask]
+    dst = edges.dst.cpu().numpy()[mask]
+    w = edges.weight.cpu().numpy()[mask]
+    if edges.directed:
+        s, d, ww = src, dst, w
+    else:
+        s = np.concatenate([src, dst])
+        d = np.concatenate([dst, src])
+        ww = np.concatenate([w, w])
+    order = np.argsort(s, kind="stable")
+    s, d, ww = s[order], d[order], ww[order]
+    indptr = np.zeros(edges.n_nodes + 1, np.int64)
+    np.add.at(indptr, s + 1, 1)
+    indptr = np.cumsum(indptr)
+    if return_weights:
+        return indptr, d.astype(np.int32), ww
+    return indptr, d.astype(np.int32)

@@ -67,3 +67,54 @@ def chung_lu_power_law(
     dst = rng.choice(n, size=m, p=p)
     src, dst = dedup_edges(src, dst, directed=False)
     return from_numpy(src, dst, n, device=device)
+
+
+def directed_planted(
+    n: int, avg_deg: float, ks: int, kt: int, p_dense: float, seed: int = 0,
+    *, device: Device = None,
+) -> Tuple[EdgeList, np.ndarray, np.ndarray]:
+    """Directed ER background + a planted dense S->T block (S = the first
+    ``ks`` nodes, T = the next ``kt``).  Returns the graph, ``s_ids`` and
+    ``t_ids``."""
+    rng = np.random.default_rng(seed)
+    m_bg = int(n * avg_deg)
+    src_bg = rng.integers(0, n, size=m_bg)
+    dst_bg = rng.integers(0, n, size=m_bg)
+    s_ids = np.arange(ks)
+    t_ids = np.arange(ks, ks + kt)
+    grid_s, grid_t = np.meshgrid(s_ids, t_ids, indexing="ij")
+    keep = rng.random(grid_s.size) < p_dense
+    src = np.concatenate([src_bg, grid_s.ravel()[keep]])
+    dst = np.concatenate([dst_bg, grid_t.ravel()[keep]])
+    src, dst = dedup_edges(src, dst, directed=True)
+    return from_numpy(src, dst, n, directed=True, device=device), s_ids, t_ids
+
+
+def bipartite_spam(
+    n_users: int,
+    n_items: int,
+    avg_deg: float,
+    spam_users: int,
+    spam_items: int,
+    p_spam: float,
+    seed: int = 0,
+    *,
+    device: Device = None,
+) -> Tuple[EdgeList, np.ndarray, np.ndarray]:
+    """User->item interaction graph with a planted spam block (the paper's
+    link-spam application): nodes ``0..n_users-1`` are users, the next
+    ``n_items`` items; the block is the last ``spam_users`` users and the
+    last ``spam_items`` items.  Returns the graph and both id arrays."""
+    rng = np.random.default_rng(seed)
+    m_bg = int(n_users * avg_deg)
+    src_bg = rng.integers(0, n_users, size=m_bg)
+    dst_bg = rng.integers(0, n_items, size=m_bg) + n_users
+    su = np.arange(n_users - spam_users, n_users)
+    si = np.arange(n_items - spam_items, n_items) + n_users
+    gs, gi = np.meshgrid(su, si, indexing="ij")
+    keep = rng.random(gs.size) < p_spam
+    src = np.concatenate([src_bg, gs.ravel()[keep]])
+    dst = np.concatenate([dst_bg, gi.ravel()[keep]])
+    src, dst = dedup_edges(src, dst, directed=True)
+    n = n_users + n_items
+    return from_numpy(src, dst, n, directed=True, device=device), su, si

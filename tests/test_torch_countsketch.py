@@ -161,10 +161,30 @@ def test_auto_above_threshold_solves_through_the_sketch(monkeypatch):
 
 
 def test_directed_sketch_waits_for_the_directed_objective():
-    p = countsketch.make_sketch_params(5, 256)
-    e = _port(erdos_renyi(50, avg_deg=4, seed=0))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        countsketch.SketchBackend(p).directed(e, e.weight)
+    """The directed objective has arrived: ``SketchBackend.directed`` keeps
+    separate out and in tables (one K2 launch each on the card) and its
+    out-degree, in-degree and total are bitwise the reference's, on a
+    directed graph with part of S and T dead."""
+    from repro.graph.generators import directed_planted
+
+    edges, _, _ = directed_planted(400, avg_deg=4, ks=20, kt=15, p_dense=0.6, seed=3)
+    alive = np.random.default_rng(5).random(edges.n_nodes) < 0.8
+    t_alive = np.random.default_rng(6).random(edges.n_nodes) < 0.7
+    ok = np.asarray(edges.mask) & alive[np.asarray(edges.src)] & t_alive[np.asarray(edges.dst)]
+    w = np.where(ok, np.asarray(edges.weight), np.float32(0))
+    for t, b, seed in [(5, 1 << 9, 2), (4, 256, 1)]:
+        rp = ref_cs.make_sketch_params(t, b, seed=seed)
+        want = ref_cs.SketchBackend(rp).directed(edges, jnp.asarray(w))
+        p = countsketch.make_sketch_params(t, b, seed=seed)
+        got = countsketch.SketchBackend(p).directed(_port(edges), torch.from_numpy(w))
+        for g, x in zip(got, want):
+            assert _bits(g) == _bits(x)
+        # The two tables are the reference's counters of each endpoint alone.
+        e = _port(edges)
+        for ids, ref_ids in ((e.src, edges.src), (e.dst, edges.dst)):
+            got_c = countsketch.sketch_endpoint_counters(p, ids, torch.from_numpy(w))
+            assert _bits(got_c) == _bits(
+                ref_cs.sketch_endpoint_counters(rp, ref_ids, jnp.asarray(w)))
 
 
 # -- the reference's Count-Sketch tests (tests/test_countsketch.py), on the port

@@ -370,6 +370,138 @@ def test_sketch_and_turnstile_solves_on_card_equal_cpu(cuda, stream_mode):
     assert got.passes == want.passes
 
 
+# -- Algorithms 2 and 3 and the sweep driver through K1 and K2 ----------------
+
+OUTCOME_FIELDS = ("best_alive", "best_t", "best_density", "best_size", "alive", "t_alive",
+                  "history_n", "history_m", "history_rho")
+
+
+def _equal_results(got, want):
+    for f in OUTCOME_FIELDS:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f).cpu()), f
+    assert got.passes == want.passes
+
+
+@pytest.mark.parametrize("variant", ["floor_fallback", "ceil_plain"])
+def test_at_least_k_pallas_equals_exact_on_card(cuda, variant):
+    fb = variant == "floor_fallback"
+    kw = dict(k=2_000, eps=0.5, min_deg_fallback=fb, ceil_count=not fb, track_history=True,
+              tile_size=256)
+    answers = []
+    for device, backend in (("cuda", "pallas"), ("cuda", "exact"), ("cpu", "pallas")):
+        edges = generators.chung_lu_power_law(20_000, avg_deg=8, seed=3, device=device)
+        before = tiled_degrees.launches
+        res = solve(edges, Problem.at_least_k(backend=backend, **kw))
+        if device == "cuda":
+            assert tiled_degrees.launches - before == (res.passes if backend == "pallas" else 0)
+        answers.append(res)
+    assert int(answers[0].best_size) >= 2_000
+    for res in answers[1:]:
+        _equal_results(res, answers[0])
+
+
+@pytest.mark.parametrize("variant", ["floor_fallback", "ceil_plain"])
+def test_at_least_k_rank_ties_on_card_equal_cpu(cuda, variant):
+    """The (degree, id) rank with many equal degrees and signed zeros at a
+    size where the card's sort takes its radix path: the removal bitmap
+    equals the CPU's, alone and as lanes."""
+    from repro_torch.core.engine import AtLeastKFraction, PassStats
+
+    rng = np.random.default_rng(7)
+    n = 200_000
+    deg = rng.choice(np.array([-0.0, 0.0, 1.0, 2.0, 3.0], np.float32), size=(2, n))
+    alive = rng.random((2, n)) < 0.9
+    fb = variant == "floor_fallback"
+    answers = []
+    for device in (cuda, "cpu"):
+        eps = torch.tensor([0.5, 1.0], device=device)
+        pol = AtLeastKFraction(k=10, eps=eps, min_deg_fallback=fb, ceil_count=not fb)
+        a = torch.from_numpy(alive).to(device)
+        d = torch.from_numpy(deg).to(device)
+        n_s = a.sum(-1)
+        stats = PassStats(rho=torch.full((2,), 1.0, device=device), total=n_s.float(),
+                          n_s=n_s, n_t=n_s)
+        answers.append(pol.removal(a, a, d, d, stats)[0].cpu())
+    assert torch.equal(*answers)
+
+
+def test_directed_sketch_pass_tables_equal_plain(cuda):
+    """One directed sketch pass on the card: two K2 launches, out and in
+    tables equal to the plain version's (integer weights), and the
+    backend's degrees equal the CPU's."""
+    from repro_torch.core.countsketch import SketchBackend, sketch_endpoint_counters
+
+    edges, _, _ = generators.directed_planted(30_000, 6, 300, 80, 0.3, seed=2, device=cuda)
+    p = make_sketch_params(5, 8192, seed=0)
+    w = torch.from_numpy(np.random.default_rng(1).integers(0, 3, edges.n_edges_padded)
+                         .astype(np.float32)).to(cuda)
+    for ids in (edges.src, edges.dst):
+        assert torch.equal(sketch_endpoint_counters(p, ids, w),
+                           count_sketch_update_ref(ids, w, p))
+    before = count_sketch_update.launches
+    out_deg, in_deg, total = SketchBackend(p).directed(edges, w)
+    assert count_sketch_update.launches == before + 2
+    cpu_e, _, _ = generators.directed_planted(30_000, 6, 300, 80, 0.3, seed=2, device="cpu")
+    want = SketchBackend(p).directed(cpu_e, w.cpu())
+    for g, x in zip((out_deg, in_deg, total), want):
+        assert torch.equal(g.cpu(), x)
+
+
+@pytest.mark.parametrize("c", [None, 4.0])
+@pytest.mark.parametrize("backend", ["exact", "sketch"])
+def test_directed_solves_on_card_equal_cpu(cuda, c, backend):
+    kw = dict(c=c, eps=0.5, backend=backend, track_history=True)
+    answers = []
+    for device in ("cuda", "cpu"):
+        edges, _, _ = generators.directed_planted(20_000, 5.0, 200, 50, 0.3, seed=0,
+                                                  device=device)
+        before = count_sketch_update.launches
+        res = solve(edges, Problem.directed(**kw))
+        if device == "cuda" and backend == "sketch" and c is not None:
+            assert count_sketch_update.launches - before == 2 * res.passes
+        answers.append(res)
+    _equal_results(*answers)
+    if c is None:
+        assert answers[0].extras["best_c"] == answers[1].extras["best_c"]
+        assert (answers[0].extras["c_density"] == answers[1].extras["c_density"]).all()
+
+
+def test_eps_sweep_lanes_equal_standalone_on_card(cuda):
+    from repro_torch.core import solve_batch
+
+    eps = [0.25, 0.5, 1.0]
+    edges = generators.chung_lu_power_law(20_000, avg_deg=8, seed=3, device=cuda)
+    prob = Problem.undirected(backend="pallas", track_history=True, tile_size=256)
+    before = tiled_degrees.launches
+    sweep = solve_batch(edges, prob, eps=eps)
+    assert tiled_degrees.launches - before == sum(sweep.passes)
+    for i, e in enumerate(eps):
+        one = solve(edges, Problem.undirected(eps=e, backend="pallas", compaction="off",
+                                              track_history=True, tile_size=256,
+                                              max_passes=sweep.provenance.max_passes))
+        for f in OUTCOME_FIELDS:
+            assert torch.equal(getattr(sweep, f)[i], getattr(one, f)), f
+        assert sweep.passes[i] == one.passes
+    cpu = solve_batch(generators.chung_lu_power_law(20_000, avg_deg=8, seed=3, device="cpu"),
+                      prob, eps=eps)
+    _equal_results(sweep, cpu)
+
+
+def test_c_sweep_on_card_launches_k2_twice_a_live_lane(cuda):
+    from repro_torch.core import solve_batch
+
+    edges, _, _ = generators.directed_planted(20_000, 5.0, 200, 50, 0.3, seed=0, device=cuda)
+    cs = [0.25, 1.0, 4.0, 16.0]
+    before = count_sketch_update.launches
+    sweep = solve_batch(edges, Problem.directed(backend="sketch"), c=cs)
+    assert count_sketch_update.launches - before == 2 * sum(sweep.passes)
+    exact = solve_batch(edges, Problem.directed(), c=cs)
+    for i, c in enumerate(cs):
+        one = solve(edges, Problem.directed(c=c, compaction="off"))
+        for f in OUTCOME_FIELDS:
+            assert torch.equal(getattr(exact, f)[i], getattr(one, f)), f
+
+
 def test_turnstile_update_launches_once_per_batch(cuda):
     """The counterpart of the reference's one-compile-per-bucket test: on
     the card every applied batch is one K3 launch, whatever its bucket."""

@@ -1,7 +1,7 @@
 """The JAX golden fixture for the card stays true: every entry of
 tests/fixtures/torch_port/golden.json (cells exact, pallas, sketch and
-turnstile, on two graphs; the REDUCED llama3.2-3b's prefill logits, greedy
-tokens and margins) is recomputed with ``repro`` here, and the port's CPU
+turnstile, on two graphs; Algorithms 2 and 3 and an eps sweep; the REDUCED
+llama3.2-3b's prefill logits, greedy tokens and margins) is recomputed with ``repro`` here, and the port's CPU
 answers meet it too (``chip_smoke.py`` holds the port's CUDA answers
 against the same file, on a machine without JAX)."""
 
@@ -41,6 +41,22 @@ def test_port_cpu_meets_golden(name, backend):
     out = getattr(generators, gen)(**kw, device="cpu")
     edges = out[0] if isinstance(out, tuple) else out
     assert golden.port_entry(edges, backend) == _load()["answers"][name][backend]
+
+
+# -- the objectives entries (at_least_k, directed, one eps sweep) -------------
+
+
+@pytest.mark.parametrize("case", golden.OBJECTIVE_CASES)
+def test_objective_golden_matches_reference(case):
+    fixture = _load()["objectives"]
+    assert fixture["at_least_k"] == golden.AT_LEAST_K
+    assert fixture["directed"]["kwargs"] == golden.DIRECTED_GRAPH[1]
+    assert fixture["answers"][case] == golden.reference_objective_entry(case)
+
+
+@pytest.mark.parametrize("case", golden.OBJECTIVE_CASES)
+def test_port_cpu_meets_objective_golden(case):
+    assert golden.port_objective_entry(case, "cpu") == _load()["objectives"]["answers"][case]
 
 
 # -- the LM entries (REDUCED llama3.2-3b, float32 compute) ---------------------

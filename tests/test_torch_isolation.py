@@ -40,6 +40,8 @@ def test_no_jax_or_reference_imports(path):
 
 PORT_MODULES = (
     "repro_torch.core", "repro_torch.core.countsketch", "repro_torch.core.turnstile",
+    "repro_torch.core.peel", "repro_torch.core.peel_topk", "repro_torch.core.peel_directed",
+    "repro_torch.core.exact", "repro_torch.core.charikar", "repro_torch.core.density",
     "repro_torch.faults", "repro_torch.kernels.hashing",
     "repro_torch.kernels.peel_degree.ops", "repro_torch.kernels.count_sketch.ops",
     "repro_torch.kernels.l0_sampler.ops", "repro_torch.kernels.l0_sampler.ref",
@@ -87,6 +89,10 @@ def test_entry_points_raise_without_cuda_and_without_device():
         from_numpy(np.array([0]), np.array([1]), 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         generators.planted_dense_subgraph(100, 4, 10, 0.5, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generators.directed_planted(100, 3, 10, 5, 0.5, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generators.bipartite_spam(50, 40, 3, 5, 5, 0.5, seed=0)
 
 
 def test_lm_entry_points_raise_without_cuda_and_without_device():
