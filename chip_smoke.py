@@ -5,7 +5,7 @@
 
 Builds the port's four CUDA kernels from the sources in this checkout (one
 ``nvcc`` each, all started together), holds each against its plain PyTorch
-version on the card, then drives the port's five paths through the
+version on the card, then drives the port's six paths through the
 entry points a user calls:
 
 * Algorithm 1 on the geometric ladder, ``solve(edges,
@@ -24,6 +24,14 @@ entry points a user calls:
   graph of FLICKR's scale, and the directed ``backend='auto'`` (sketch)
   query on the same generator at LIVEJOURNAL's scale, against the peel
   over the plain counters;
+* per-seed serving: ``DensestQueryEngine`` over the FLICKR graph in both
+  extraction modes (256 seeds; every lane against its standalone solve and
+  the engine on the CPU; 4 seeds against the local front door ``solve(...,
+  seed=)``), local mode over the LIVEJOURNAL graph (64 seeds), the
+  resilience ladder under a seeded fault storm with a turnstile density
+  service attached (K3 on every update batch, K1 on its sample peel), a
+  fresh process that loads the four libraries from the cache of built
+  kernels with no ``nvcc``, and the golden fixture's serve entries;
 * the LM path at the full width of llama3.2-3b (28 layers, random weights
   from a seeded ``torch.Generator``): ``prefill`` of an 8,192-token prompt
   with ``attn_impl='pallas'`` (K4, flash attention, once per layer)
@@ -1135,6 +1143,333 @@ def phase_golden_sketch_turnstile() -> None:
                 **{k: got[k] for k in shown if k in got})
 
 
+# -- per-seed serving (the query engine, the local substrate, resilience) ----
+
+# The engine's defaults in benchmarks/bench_serve.py:124-131 (radius 1, 128
+# ego nodes, 16 queries a flush, eps 0.5, 32 passes; compaction off, as
+# there); the local mode at repro_torch/constants.py's budget 512, 8
+# rounds, alpha 1.0, volume factor 32.
+SERVE_PROBLEM = dict(eps=EPS, max_passes=32, compaction="off")
+SERVE_ENGINE = dict(radius=1, max_ego_nodes=128, max_batch=16)
+SERVE_QUERIES = 256
+SERVE_LJ_QUERIES = 64
+SERVE_FRONT_DOOR = 4
+SERVE_FAIL_PROB = 0.3
+
+
+def serve_seeds(indptr, count: int) -> list:
+    """``count`` seeds of degree >= 1, drawn by ``numpy.random.default_rng(0)``."""
+    import numpy as np
+
+    candidates = np.nonzero(np.diff(indptr) > 0)[0]
+    return [int(x) for x in np.random.default_rng(0).choice(candidates, count, replace=False)]
+
+
+def _pct(values, q) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values, np.float64), q))
+
+
+def _timed_extraction(eng) -> dict:
+    """Accumulates the host seconds ``eng`` spends extracting (wraps the
+    engine's per-query extraction on this instance; ``del
+    eng._extract_pending`` restores it)."""
+    spent = {"s": 0.0}
+    inner = eng._extract_pending
+
+    def timed(q):
+        t0 = time.perf_counter()
+        try:
+            return inner(q)
+        finally:
+            spent["s"] += time.perf_counter() - t0
+
+    eng._extract_pending = timed
+    return spent
+
+
+def _serve_run(eng, seeds) -> tuple:
+    """One pass of ``seeds`` through ``eng`` on the card: (results, numbers)."""
+    import torch
+
+    from repro_torch import hostsync
+
+    spent = _timed_extraction(eng)
+    flushes, lanes, pads = eng.batches_flushed, eng.lanes_solved, eng.pad_lanes
+    touched, scanned = eng.local_nodes_touched, eng.local_edges_scanned
+    torch.cuda.synchronize()
+    hostsync.read.count = 0
+    t0 = time.perf_counter()
+    results = eng.query_many(seeds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del eng._extract_pending
+    n_flush = eng.batches_flushed - flushes
+    lat = [r.latency_s * 1e3 for r in results]
+    numbers = dict(
+        queries=len(seeds), wall_ms=wall * 1e3, qps=len(seeds) / wall,
+        p50_ms=_pct(lat, 50), p99_ms=_pct(lat, 99), flushes=n_flush,
+        distinct_buckets=len({r.bucket for r in results}),
+        lanes=eng.lanes_solved - lanes, pad_lanes=eng.pad_lanes - pads,
+        host_syncs_per_flush=hostsync.read.count / max(n_flush, 1),
+        extract_ms=spent["s"] * 1e3, solve_ms=(wall - spent["s"]) * 1e3,
+        extract_share=spent["s"] / wall,
+    )
+    if eng.extraction == "local":
+        numbers.update(
+            local_nodes_touched_per_query=(eng.local_nodes_touched - touched) / len(seeds),
+            local_edges_scanned_per_query=(eng.local_edges_scanned - scanned) / len(seeds))
+    return results, numbers
+
+
+def _same_answer(what: str, got, want, fields=("density", "seed_in_set", "bucket", "n_ego",
+                                                "m_ego")) -> None:
+    import numpy as np
+
+    if not np.array_equal(got.nodes, want.nodes):
+        raise AssertionError(f"{what}: seed {got.seed} nodes differ")
+    for f in fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if f == "density":
+            a, b = np.float64(a).tobytes(), np.float64(b).tobytes()
+        if a != b:
+            raise AssertionError(f"{what}: seed {got.seed} {f} {getattr(got, f)} != "
+                                 f"{getattr(want, f)}")
+
+
+def phase_serve(flickr, flickr_cpu, extraction: str) -> None:
+    """``DensestQueryEngine`` over flickr_sm on the card (``serve.bfs`` or
+    ``serve.local``): 256 seeds in one ``query_many`` (logged; nothing
+    compiles, so the first run is already a warm one), every answer
+    ``'ok'`` and == a standalone ``solve`` of the same padded buffer on the card
+    (bitwise, unit weights) and == the engine on the CPU; in local mode
+    the first 4 seeds also == the front door ``solve(flickr,
+    Problem(substrate='local'), seed=s)`` (it builds the CSR on every call,
+    so only 4 seeds take it)."""
+    import dataclasses
+
+    from repro_torch.core import Problem, solve
+    from repro_torch.serve import DensestQueryEngine
+
+    label = f"serve.{extraction}"
+    prob = Problem.undirected(**SERVE_PROBLEM)
+    t0 = time.perf_counter()
+    eng = DensestQueryEngine(flickr, prob, extraction=extraction, **SERVE_ENGINE)
+    csr_s = time.perf_counter() - t0
+    seeds = serve_seeds(eng._indptr, SERVE_QUERIES)
+    results, numbers = _serve_run(eng, seeds)
+    log(label, engine_build_s=csr_s, **numbers)
+    for r in results:
+        if r.status != "ok":
+            raise AssertionError(f"{label}: seed {r.seed} answered {r.status}: {r.error}")
+        padded, nodes = eng.extract(r.seed)
+        one = solve(padded.to(flickr.device), prob)
+        alive = one.nodes()
+        want = dataclasses.replace(r, nodes=nodes[alive[alive < len(nodes)]],
+                                   density=float(one.best_density))
+        _same_answer(f"{label} lane vs standalone solve", r, want, fields=("density",))
+        if r.bucket[:2] != (padded.n_nodes, padded.n_edges_padded):
+            raise AssertionError(f"{label}: seed {r.seed} bucket {r.bucket} != buffer")
+    cpu = DensestQueryEngine(flickr_cpu, prob, extraction=extraction, **SERVE_ENGINE)
+    for a, b in zip(results, cpu.query_many(seeds)):
+        _same_answer(f"{label} card vs CPU", a, b)
+    checked = ["every lane == standalone solve on the card (bitwise)", "== engine on the CPU"]
+    if extraction == "local":
+        local = dataclasses.replace(prob, substrate="local")
+        for r in results[:SERVE_FRONT_DOOR]:
+            t0 = time.perf_counter()
+            front = solve(flickr, local, seed=r.seed)
+            front_ms = (time.perf_counter() - t0) * 1e3
+            want = dataclasses.replace(r, nodes=front.nodes(), density=float(front.best_density))
+            _same_answer(f"{label} lane vs front door", r, want, fields=("density",))
+            log(label, front_door_seed=r.seed, front_door_ms=front_ms,
+                bucket=front.extras["local"]["bucket"], size=int(front.best_size))
+        checked.append(f"first {SERVE_FRONT_DOOR} == solve(flickr, Problem(substrate='local'), "
+                       "seed=s)")
+    log(label, equal="; ".join(checked), queries=len(seeds),
+        buckets=sorted(eng.bucket_histogram.items()))
+    phase_profile(f"{label}_one_flush", lambda: eng.query_many(seeds[:SERVE_ENGINE["max_batch"]]))
+
+
+def phase_serve_livejournal(lj) -> None:
+    """``serve.local.livejournal``: 64 seeds in local mode over
+    livejournal_md; the per-query work and p50 beside flickr_sm's (work
+    bounded by the budget, not by n)."""
+    from repro_torch.core import Problem
+    from repro_torch.serve import DensestQueryEngine
+
+    t0 = time.perf_counter()
+    eng = DensestQueryEngine(lj, Problem.undirected(**SERVE_PROBLEM), extraction="local",
+                             **SERVE_ENGINE)
+    csr_s = time.perf_counter() - t0
+    seeds = serve_seeds(eng._indptr, SERVE_LJ_QUERIES)
+    results, numbers = _serve_run(eng, seeds)
+    if not all(r.status == "ok" for r in results):
+        raise AssertionError("serve.local.livejournal: a query did not answer")
+    log("serve.local.livejournal", engine_build_s=csr_s, nodes=lj.n_nodes,
+        edges=lj.n_edges_padded, **numbers)
+
+
+def _churn_service(flickr):
+    """A ``TurnstileDensityService`` on the card fed the flickr_sm churn
+    stream of ``phase_turnstile`` (2^20-row insert batches, then a seeded
+    10% deleted in one batch), with the sample peel under ``'pallas'``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Problem
+    from repro_torch.serve import TurnstileDensityService
+
+    m = flickr.n_edges_padded
+    rng = np.random.default_rng(0)
+    del_idx = torch.from_numpy(np.sort(rng.choice(m, size=m // 10, replace=False))).to(DEV)
+    dels = (flickr.src[del_idx].contiguous(), flickr.dst[del_idx].contiguous())
+    svc = TurnstileDensityService(flickr.n_nodes, Problem.undirected(
+        eps=EPS, stream_mode="turnstile", backend="pallas"), device=DEV)
+    for i in range(0, m, TURNSTILE_BATCH):
+        svc.apply(insert_edges=(flickr.src[i:i + TURNSTILE_BATCH],
+                                flickr.dst[i:i + TURNSTILE_BATCH]))
+    svc.apply(delete_edges=dels)
+    return svc
+
+
+def phase_serve_resilience(flickr, flickr_cpu) -> None:
+    """``serve.resilience``: the bfs engine under ``FaultPlan(seed=0)``
+    failing each ``serve.solve`` with p 0.3, ``max_retries=2`` and every
+    degrade rung on, a turnstile density service on the card attached (fed
+    the churn stream through K3; its sample peel through K1); the (status,
+    fallback, attempts) of every query == the port's engine on the CPU
+    under the same plan, and the answers too.  The CPU engine reads the
+    same service (its sketch on the CPU would cost a minute of plain K3);
+    both engines read a frozen clock, so no circuit breaker's cooldown
+    depends on the wall."""
+    from repro_torch import faults
+    from repro_torch.core import Problem
+    from repro_torch.kernels.l0_sampler import ops as l0_ops
+    from repro_torch.kernels.peel_degree.ops import tiled_degrees
+    from repro_torch.serve import DensestQueryEngine, ResilienceConfig
+
+    cfg = ResilienceConfig(max_retries=2, degrade_radius=True, degrade_turnstile=True,
+                           degrade_last_good=True)
+    l0_ops.l0_delta.launches = 0
+    tiled_degrees.launches = 0
+    t0 = time.perf_counter()
+    svc = _churn_service(flickr)
+    feed_ms = (time.perf_counter() - t0) * 1e3
+    k3 = l0_ops.l0_delta.launches
+    runs = {}
+    for device, graph in ((DEV, flickr), ("cpu", flickr_cpu)):
+        eng = DensestQueryEngine(graph, Problem.undirected(**SERVE_PROBLEM), resilience=cfg,
+                                 time_fn=lambda: 0.0, **SERVE_ENGINE).attach_turnstile(svc)
+        seeds = serve_seeds(eng._indptr, SERVE_QUERIES)
+        t0 = time.perf_counter()
+        with faults.active(faults.FaultPlan(seed=0).fail_prob("serve.solve", SERVE_FAIL_PROB)):
+            results = eng.query_many(seeds)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        runs[device] = results
+        if device != DEV:
+            continue
+        k1 = tiled_degrees.launches
+        computed, served = svc.queries_computed, svc.queries_served
+        passes = svc.result().passes  # the cached answer: no launch
+        if k3 == 0 or k3 != svc.batches_applied:
+            raise AssertionError(f"K3 launches {k3} != {svc.batches_applied} batches")
+        if k1 == 0 or k1 != passes or computed != 1:
+            raise AssertionError(f"K1 launches {k1} != the sample peel's {passes} passes "
+                                 f"({computed} peels)")
+        by = {}
+        for r in results:
+            key = r.status if r.fallback is None else f"{r.status}:{r.fallback.split(':')[0]}"
+            by[key] = by.get(key, 0) + 1
+        st = eng.stats()
+        log("serve.resilience", queries=len(seeds), wall_ms=wall_ms, feed_ms=feed_ms,
+            k3_launches=k3, batches=svc.batches_applied, k1_launches=k1, sample_passes=passes,
+            outcomes=by, solve_retries=st["solve_retries"],
+            breaker_open_skips=st["breaker_open_skips"],
+            service_queries_computed=computed, service_queries_served=served)
+    card, cpu = runs[DEV], runs["cpu"]
+    for a, b in zip(card, cpu):
+        if (a.status, a.fallback, a.attempts) != (b.status, b.fallback, b.attempts):
+            raise AssertionError(f"serve.resilience seed {a.seed}: card {a.status}/{a.fallback}/"
+                                 f"{a.attempts} != CPU {b.status}/{b.fallback}/{b.attempts}")
+        if a.answered:
+            _same_answer("serve.resilience card vs CPU", a, b, fields=("density", "bucket"))
+    if not any(r.degraded for r in card):
+        raise AssertionError("serve.resilience: the plan degraded no query")
+    log("serve.resilience", equal="(status, fallback, attempts) and answers == the CPU run "
+        "under the same plan")
+
+
+def phase_build_cache() -> None:
+    """``build.cache``: a fresh process loads all four libraries from the
+    directory ``phase_build`` filled and runs nvcc zero times; a second
+    fresh process asks for K3 with one nvcc flag changed (-O3 -> -O2)
+    through ``load_library``'s build arguments and must miss and build."""
+    import os
+
+    from repro_torch.kernels.count_sketch import ops as cs_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.l0_sampler import ops as l0_ops
+    from repro_torch.kernels.peel_degree import ops as pd_ops
+
+    sources = [str(o.SOURCE) for o in (pd_ops, cs_ops, l0_ops, fa_ops)]
+    warm = (
+        "import json, time; from pathlib import Path; from repro_torch import kernels\n"
+        "def never(*a): raise SystemExit('nvcc ran')\n"
+        "ms = {}\n"
+        f"for s in {sources!r}:\n"
+        "    t0 = time.perf_counter(); kernels.load_library(Path(s), build=never)\n"
+        "    ms[Path(s).name] = (time.perf_counter() - t0) * 1e3\n"
+        "c = kernels.PROCESS_COUNTERS\n"
+        "print(json.dumps({'load_ms': ms, 'build_log': list(kernels.BUILD_LOG), "
+        "'hits': c.disk_hits, 'misses': c.disk_misses}))\n"
+    )
+    changed = (
+        "import json; from pathlib import Path; from repro_torch import kernels\n"
+        "flags = tuple('-O2' if f == '-O3' else f for f in kernels.NVCC_FLAGS)\n"
+        f"kernels.load_library(Path({sources[2]!r}), flags=flags)\n"
+        "c = kernels.PROCESS_COUNTERS\n"
+        "print(json.dumps({'build_log': {k: v['seconds'] for k, v in kernels.BUILD_LOG.items()},"
+        " 'hits': c.disk_hits, 'misses': c.disk_misses, 'path': str(kernels.library_path("
+        f"Path({sources[2]!r}), flags))}}))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = {}
+    for name, code in (("warm", warm), ("changed_flag", changed)):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                              env=env, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"build.cache {name} child failed: {proc.stdout}{proc.stderr}")
+        out[name] = json.loads(proc.stdout.strip().splitlines()[-1])
+        out[name]["process_s"] = time.perf_counter() - t0
+    w, c = out["warm"], out["changed_flag"]
+    if w["build_log"] or (w["hits"], w["misses"]) != (4, 0):
+        raise AssertionError(f"build.cache: a warm directory built {w}")
+    if (c["hits"], c["misses"]) != (0, 1) or list(c["build_log"]) != ["l0_sampler.cu"]:
+        raise AssertionError(f"build.cache: a changed nvcc flag did not miss {c}")
+    log("build.cache", warm_load_ms=w["load_ms"], warm_nvcc_runs=len(w["build_log"]),
+        warm_process_s=w["process_s"], changed_flag_nvcc_s=c["build_log"],
+        changed_flag_entry=Path(c["path"]).name)
+
+
+def phase_golden_serve() -> None:
+    """``golden.serve``: the JAX golden fixture's serve entries (the engine
+    in both modes and the local front door, on the quickstart and 200k
+    graphs) on the card."""
+    import torch_port_golden as golden
+
+    with open(golden.GOLDEN) as f:
+        fixture = json.load(f)["serve"]["answers"]
+    for case in golden.SERVE_CASES:
+        got = golden.port_serve_entry(case, DEV)
+        if got != fixture[case]:
+            bad = [i for i, (a, b) in enumerate(zip(got, fixture[case])) if a != b]
+            raise AssertionError(f"golden serve {case}: entries {bad} differ from the JAX golden")
+        log("golden", serve_case=case, equal="JAX golden", entries=len(got))
+
+
 # -- Algorithms 2 and 3 and the sweep driver, through K1 and K2 ---------------
 
 # Algorithm 2's size floor at flickr_sm: the undirected best set there is a
@@ -1742,6 +2077,8 @@ def main() -> int:
     k2.update(phase_livejournal(lj))
     phase_profile("livejournal_auto_sketch", lambda: solve(lj, Problem.undirected(
         eps=EPS, backend="auto")))
+    # Path 6 (its livejournal_md part): per-seed local serving.
+    phase_serve_livejournal(lj)
     del lj
     torch.cuda.empty_cache()
     # Path 3: the turnstile runtime through K3 (and K1 on the sample).
@@ -1751,6 +2088,16 @@ def main() -> int:
     # Path 5: Algorithms 2 and 3 and the sweep driver through K1 and K2.
     phase_topk(flickr)
     phase_sweep(flickr)
+    # Path 6: per-seed serving (the engine in both modes, the local front
+    # door, the resilience ladder over the turnstile service: K3 and K1)
+    # and the cache of built kernels.
+    flickr_cpu = flickr.to("cpu")
+    phase_serve(flickr, flickr_cpu, "bfs")
+    phase_serve(flickr, flickr_cpu, "local")
+    phase_serve_resilience(flickr, flickr_cpu)
+    del flickr_cpu
+    phase_build_cache()
+    phase_golden_serve()
     del flickr
     torch.cuda.empty_cache()
     phase_directed()

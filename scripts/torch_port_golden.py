@@ -41,6 +41,19 @@ the top-1/top-2 logit margin of each of those tokens under a full
 ``forward`` of the prompt and the tokens before it: a margin far above the
 logits' tolerance means no rounding on the card can flip the token.
 
+The ``serve`` section holds per-seed serving on the two graphs, each case
+named ``<kind>.<graph>``: ``engine.bfs`` and ``engine.local`` are the
+reference ``DensestQueryEngine``'s answers (radius 1, 128 ego nodes, 16
+queries a batch, eps 0.5, 32 passes, compaction off; the local mode at its
+defaults: budget 512, 8 rounds, alpha 1) for :data:`SERVE_QUERIES` seeds of
+degree >= 1 drawn by ``numpy.random.default_rng(0)``, one record a query
+(``seed``, ``size``, ``density_f32``, ``seed_in_set``, ``n_ego``, ``m_ego``,
+``bucket`` and the sha256 of the int64 ``nodes``); ``local`` is the
+reference's ``solve(graph, Problem(substrate='local'), seed=s)`` for the
+first :data:`SERVE_FRONT_DOOR` of those seeds, each a ``record`` plus the
+exploration counters of ``extras['local']`` and the sha256 of its
+candidate set.
+
 The pallas entries come from the reference's tiled-degree kernel K1: the
 quickstart graph through the real ``backend='pallas'`` cell (Pallas in
 interpret mode off-TPU); the 200k graph through K1's jnp oracle
@@ -78,6 +91,12 @@ OBJECTIVE_CASES = tuple(
     [f"at_least_k.{g}.{b}" for g in AT_LEAST_K for b in BACKENDS]
     + ["directed.fixed_c", "directed.grid", "sweep.quickstart"]
 )
+SERVE_PROBLEM = dict(eps=EPS, max_passes=32, compaction="off")
+SERVE_ENGINE = dict(radius=1, max_ego_nodes=128, max_batch=16, max_wait_ms=0.0)
+SERVE_QUERIES = 24
+SERVE_FRONT_DOOR = 4
+SERVE_CASES = tuple(f"{kind}.{g}" for kind in ("engine.bfs", "engine.local", "local")
+                    for g in GRAPHS)
 
 
 def f32_hex(x) -> str:
@@ -288,6 +307,88 @@ def port_objective_entry(case: str, device):
                    res.best_size[i].cpu(), res.passes[i]) for i in range(len(SWEEP_EPS))]
 
 
+# -- the serve entries (per-seed serving and the local front door) ------------
+
+
+def serve_seeds(indptr) -> list:
+    """:data:`SERVE_QUERIES` seeds of degree >= 1, drawn by
+    ``numpy.random.default_rng(0)`` from a graph's CSR ``indptr``."""
+    candidates = np.nonzero(np.diff(np.asarray(indptr)) > 0)[0]
+    rng = np.random.default_rng(0)
+    return [int(s) for s in rng.choice(candidates, SERVE_QUERIES, replace=False)]
+
+
+def query_record(r) -> dict:
+    """One ``QueryResult`` in the fixture's form."""
+    return {
+        "seed": int(r.seed), "size": int(len(r.nodes)), "density_f32": f32_hex(r.density),
+        "seed_in_set": bool(r.seed_in_set), "n_ego": int(r.n_ego), "m_ego": int(r.m_ego),
+        "bucket": [int(b) for b in r.bucket],
+        "nodes_sha256": array_sha256(np.asarray(r.nodes, np.int64)), "status": r.status,
+    }
+
+
+def local_record(best_alive, best_density, best_size, passes, info) -> dict:
+    """A front-door ``substrate='local'`` entry: the answer and the
+    exploration counters."""
+    keys = ("n_candidates", "m_candidates", "rounds", "nodes_touched", "edges_scanned",
+            "frontier_exhausted")
+    return record(best_alive, best_density, best_size, passes,
+                  **{k: info[k] for k in keys}, bucket=[int(b) for b in info["bucket"]],
+                  candidates_sha256=array_sha256(np.asarray(info["candidates"], np.int64)))
+
+
+def reference_serve_entry(case: str) -> list:
+    """One serve entry, computed by the JAX package."""
+    import dataclasses
+
+    from repro.core import Problem, solve
+    from repro.graph.edgelist import to_csr
+    from repro.serve.densest import DensestQueryEngine
+
+    kind, name = case.rsplit(".", 1)
+    edges = make_graph(name)
+    seeds = serve_seeds(to_csr(edges)[0])
+    prob = Problem.undirected(**SERVE_PROBLEM)
+    if kind == "local":
+        out = []
+        for s in seeds[:SERVE_FRONT_DOOR]:
+            res = solve(edges, dataclasses.replace(prob, substrate="local"), seed=s)
+            out.append(local_record(res.best_alive, res.best_density, res.best_size,
+                                    res.passes, res.extras["local"]))
+        return out
+    eng = DensestQueryEngine(edges, prob, extraction=kind.split(".")[1], **SERVE_ENGINE)
+    return [query_record(r) for r in eng.query_many(seeds)]
+
+
+def port_serve_entry(case: str, device) -> list:
+    """The port's answer for one serve case on ``device``, in the
+    fixture's form."""
+    import dataclasses
+
+    from repro_torch.core import Problem, solve
+    from repro_torch.graph import generators
+    from repro_torch.graph.edgelist import to_csr
+    from repro_torch.serve import DensestQueryEngine
+
+    kind, name = case.rsplit(".", 1)
+    gen, kw = GRAPHS[name]
+    out = getattr(generators, gen)(**kw, device=device)
+    edges = out[0] if isinstance(out, tuple) else out
+    seeds = serve_seeds(to_csr(edges)[0])
+    prob = Problem.undirected(**SERVE_PROBLEM)
+    if kind == "local":
+        out = []
+        for s in seeds[:SERVE_FRONT_DOOR]:
+            res = solve(edges, dataclasses.replace(prob, substrate="local"), seed=s)
+            out.append(local_record(res.best_alive.cpu().numpy(),
+                                    res.best_density.cpu().numpy(), res.best_size.cpu(),
+                                    res.passes, res.extras["local"]))
+        return out
+    eng = DensestQueryEngine(edges, prob, extraction=kind.split(".")[1], **SERVE_ENGINE)
+    return [query_record(r) for r in eng.query_many(seeds)]
+
+
 # -- the LM entries ----------------------------------------------------------
 
 LM_ARCH = "llama3.2-3b"
@@ -435,6 +536,11 @@ def compute() -> dict:
             "sweep_eps": list(SWEEP_EPS),
             "answers": {case: reference_objective_entry(case) for case in OBJECTIVE_CASES},
         },
+        "serve": {
+            "problem": SERVE_PROBLEM, "engine": SERVE_ENGINE, "queries": SERVE_QUERIES,
+            "front_door": SERVE_FRONT_DOOR,
+            "answers": {case: reference_serve_entry(case) for case in SERVE_CASES},
+        },
         "lm": {
             "arch": LM_ARCH, "seed": LM_SEED,
             "cases": {name: {**case, "prompt_lens": list(case["prompt_lens"])}
@@ -454,6 +560,8 @@ def main() -> int:
     os.replace(tmp, GOLDEN)
     print(json.dumps(golden["answers"], indent=1, sort_keys=True))
     print(json.dumps(golden["objectives"]["answers"], indent=1, sort_keys=True))
+    for case, entry in golden["serve"]["answers"].items():
+        print(case, [(e.get("seed"), e.get("size", e.get("best_size"))) for e in entry])
     for name, entry in golden["lm"]["answers"].items():
         print(name, "tokens", entry["tokens"], "least margin",
               min(min(m) for m in entry["margins"]))

@@ -10,3 +10,5 @@ nothing heavy: kernels are built and loaded at first launch.
     edges, planted = planted_dense_subgraph(2000, 4, 60, 0.6, seed=7)  # on cuda
     res = solve(edges, Problem.undirected(eps=0.5, backend="pallas"))
 """
+
+__version__ = "1.0.0"

@@ -1,13 +1,15 @@
 """The port's core: the front door (api.py) over the peel engine
 (engine.py), the §5.1 Count-Sketch backend (countsketch.py), the turnstile
-runtime (turnstile.py) and the numpy baselines (exact.py, charikar.py).
-The names match ``repro.core``'s for every ported part.
+runtime (turnstile.py), the local substrate's exploration (local.py), the
+cache of built kernels (progcache.py) and the numpy baselines (exact.py,
+charikar.py).  The names match ``repro.core``'s for every ported part.
 
     from repro_torch.core import Problem, solve, solve_batch
     res = solve(edges, Problem.undirected(eps=0.5, backend="pallas"))
     res = solve(edges, Problem.at_least_k(k=100))
     res = solve(edges, Problem.directed())           # the c grid
     sweep = solve_batch(edges, Problem.undirected(), eps=[0.25, 0.5, 1.0])
+    res = solve(edges, Problem(substrate="local"), seed=17)
 """
 
 from repro_torch.core.api import (
@@ -45,6 +47,7 @@ from repro_torch.core.engine import (
     segment_degree_count,
     undirected_pass_step,
 )
+from repro_torch.core.local import LocalExploration, LocalExplorer
 from repro_torch.core.exact import (
     densest_directed_brute,
     densest_subgraph_brute,
@@ -66,6 +69,8 @@ __all__ = [
     "DirectedST",
     "ExactBackend",
     "FnBackend",
+    "LocalExploration",
+    "LocalExplorer",
     "PeelOutcome",
     "PeelState",
     "Problem",

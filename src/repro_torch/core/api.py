@@ -15,18 +15,27 @@ sweeps as one peel loop with a lane axis.  Cells of this slice:
                sketch     -> SketchBackend (§5.1), its counters built by the
                              hand-written Count-Sketch kernel (kernels/count_sketch)
     substrate  jit        -> run_peel's host loop on one device
+               local      -> core/local.py: Andersen's pruned-frontier
+                             exploration around ``solve(..., seed=)`` on
+                             the host, then a jit solve of the padded
+                             candidate subgraph on the graph's device
     compaction off | geometric | twophase  (Solver._run_compacted ladder)
     stream_mode turnstile -> core/turnstile.py: the ℓ0 sketch (kernels/l0_sampler)
                              and a peel of its recovered sample
 
-The mesh, streaming and local substrates resolve and validate exactly as
-in the reference, then raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.  The port keeps no program cache (PyTorch runs
-eagerly), so ``Provenance.cache_hit`` is always False.
+The mesh and streaming substrates resolve and validate exactly as in the
+reference, then raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.  The port keeps no program cache (PyTorch runs eagerly), so
+``Provenance.cache_hit`` is always False.  What a fresh process pays for
+instead is building the kernels: ``Solver(cache_dir=...)`` (or
+``Problem.cache_dir``) points the kernels its solves load first at a
+persistent cache of built libraries (core/progcache.py), and the Solver
+counts its lookups in ``disk_hits``/``disk_misses``/``disk_store_errors``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -34,7 +43,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch import constants, hostsync
+from repro_torch import constants, hostsync, kernels
 from repro_torch.core.density import max_passes_bound
 from repro_torch.core.engine import (
     AtLeastKFraction,
@@ -293,9 +302,7 @@ class Problem:
 def _require_ported(prob: Problem) -> None:
     """Raises for a resolved cell this slice of the port does not run."""
     missing = None
-    if prob.substrate == "local":
-        missing = "substrate='local' (ROADMAP Queue 1 item 7)"
-    elif prob.substrate == "streaming":
+    if prob.substrate == "streaming":
         missing = "substrate='streaming' (ROADMAP Queue 1 item 5)"
     elif prob.substrate == "mesh":
         missing = "substrate='mesh' (ROADMAP Queue 1 item 6)"
@@ -515,9 +522,37 @@ def _host_f32(values) -> np.ndarray:
 
 
 class Solver:
-    """Runs Problems.  Stateless in the port: there is no program cache."""
+    """Runs Problems.  There is no program cache in the port (PyTorch runs
+    eagerly); ``cache_dir`` is where the kernels that this Solver's solves
+    load first are looked up and published (core/progcache.py), and
+    ``disk_hits``/``disk_misses``/``disk_store_errors`` count those loads.
+    ``Solver(cache_dir=...)`` wins over ``Problem.cache_dir``."""
 
-    def solve(self, graph: EdgeList, problem: Problem) -> DenseSubgraphResult:
+    def __init__(self, cache_dir: Optional[str] = None):
+        self.cache_dir = cache_dir
+        self.disk_hits = 0
+        self.disk_misses = 0
+        self.disk_store_errors = 0
+
+    def _disk_dir(self, problem: Problem) -> Optional[str]:
+        """The effective cache directory: the Solver's own setting wins;
+        otherwise the Problem's."""
+        return self.cache_dir if self.cache_dir is not None else problem.cache_dir
+
+    @contextlib.contextmanager
+    def kernel_cache(self, problem: Problem):
+        """Within the block, kernels load through this Solver's cache
+        directory (if it or ``problem`` names one) and count here."""
+        d = self._disk_dir(problem)
+        if d is None:
+            yield
+            return
+        with kernels.kernel_cache(d, self):
+            yield
+
+    def solve(
+        self, graph: EdgeList, problem: Problem, *, seed: Optional[int] = None
+    ) -> DenseSubgraphResult:
         """Runs one Problem on one graph, on ``graph.device``::
 
             res = Solver().solve(edges, Problem.undirected(eps=0.5))
@@ -525,10 +560,25 @@ class Solver:
             nodes = res.nodes()
             res = Solver().solve(edges, Problem.directed())  # the c grid
             res.extras["best_c"], res.t_nodes()
+            res = Solver().solve(edges, Problem(substrate="local"), seed=17)
+
+        ``seed`` is required by, and only by, ``substrate='local'``: the
+        node whose dense neighborhood is wanted.
         """
         if not isinstance(graph, EdgeList):
             raise TypeError(f"solve() takes an EdgeList graph, got {type(graph).__name__}")
         prob = problem.resolve(graph.n_nodes)
+        with self.kernel_cache(prob):
+            if prob.substrate == "local":
+                return self._solve_local(graph, prob, seed)
+            if seed is not None:
+                raise ValueError(
+                    "seed= is the substrate='local' per-seed query knob; "
+                    f"substrate={prob.substrate!r} solves the whole graph"
+                )
+            return self._solve(graph, prob)
+
+    def _solve(self, graph: EdgeList, prob: Problem) -> DenseSubgraphResult:
         _require_ported(prob)
         if prob.stream_mode == "turnstile":
             return self._solve_turnstile(graph, prob)
@@ -735,6 +785,73 @@ class Solver:
         }
         return outcome, ladder
 
+    def _solve_local(self, graph: EdgeList, prob: Problem, seed) -> DenseSubgraphResult:
+        """Andersen local substrate (``substrate='local'``): the
+        pruned-frontier exploration around ``seed`` on the host
+        (core/local.py), then the jit solve of the bucket-padded candidate
+        subgraph, moved to the graph's device in one copy per leaf.
+
+        The result's bitmaps are scattered back to the ORIGINAL id space on
+        the graph's device, pad ids dropped (history and passes describe
+        the padded candidate buffer); provenance reports
+        ``substrate='local'`` and ``extras['local']`` carries the
+        exploration counters.  A one-shot front door: the CSR is built on
+        every call (a copy of the graph to the host); request-rate serving
+        holds a :class:`repro_torch.serve.densest.DensestQueryEngine`
+        instead, which builds it once."""
+        from repro_torch.core.local import LocalExplorer
+
+        if seed is None:
+            raise ValueError(
+                "substrate='local' answers per-seed queries: "
+                "solve(graph, problem, seed=<node id>)"
+            )
+        explorer = LocalExplorer.from_edgelist(graph)
+        padded, ex = explorer.extract(
+            seed, budget=prob.local_budget, max_rounds=prob.local_rounds,
+            alpha=prob.local_alpha,
+        )
+        dev = graph.device
+        sub = self.solve(padded.to(dev), dataclasses.replace(prob, substrate="jit"))
+        nodes = ex.candidates
+        ids = torch.from_numpy(nodes).to(dev)
+
+        def lift(bitmap: torch.Tensor) -> torch.Tensor:
+            # Padded-buffer bitmap -> original id space; local ids past
+            # len(nodes) are isolated pad nodes and are dropped.
+            full = torch.zeros(graph.n_nodes, dtype=torch.bool, device=dev)
+            full[ids] = bitmap[: len(nodes)]
+            return full
+
+        best_alive = lift(sub.best_alive)
+        out = PeelOutcome(
+            best_alive=best_alive,
+            best_t=sub.best_t,
+            best_density=sub.best_density,
+            best_size=best_alive.sum(dtype=torch.int32),
+            passes=sub.passes,
+            alive=lift(sub.alive),
+            t_alive=sub.t_alive,
+            history_n=sub.history_n,
+            history_m=sub.history_m,
+            history_rho=sub.history_rho,
+        )
+        extras = {
+            "local": {
+                "seed": int(ex.seed),
+                "candidates": nodes,
+                "n_candidates": int(len(nodes)),
+                "m_candidates": int(padded.mask.sum()),
+                "rounds": int(ex.rounds),
+                "nodes_touched": int(ex.nodes_touched),
+                "edges_scanned": int(ex.edges_scanned),
+                "frontier_exhausted": bool(ex.frontier_exhausted),
+                "budget": int(prob.local_budget),
+                "bucket": (int(padded.n_nodes), int(padded.n_edges_padded)),
+            }
+        }
+        return self._wrap(out, prob, graph.n_nodes, sub.provenance.max_passes, extras=extras)
+
     def _solve_turnstile(self, graph: EdgeList, prob: Problem) -> DenseSubgraphResult:
         """One-shot turnstile solve, as the reference lowers
         ``Problem(stream_mode='turnstile')``: a
@@ -786,6 +903,10 @@ class Solver:
         ``compaction='auto'`` quietly resolves to off and an explicit
         ladder raises.
         """
+        with self.kernel_cache(problem):
+            return self._solve_batch(graph, problem, eps=eps, c=c)
+
+    def _solve_batch(self, graph, problem: Problem, *, eps=None, c=None) -> DenseSubgraphResult:
         stacked = isinstance(graph, (list, tuple)) or (
             isinstance(graph, EdgeList) and graph.src.dim() == 2
         )
@@ -885,9 +1006,9 @@ class Solver:
 default_solver = Solver()
 
 
-def solve(graph: EdgeList, problem: Problem) -> DenseSubgraphResult:
-    """Module-level :meth:`Solver.solve`."""
-    return default_solver.solve(graph, problem)
+def solve(graph: EdgeList, problem: Problem, **kw) -> DenseSubgraphResult:
+    """Module-level :meth:`Solver.solve` (``seed=`` for ``substrate='local'``)."""
+    return default_solver.solve(graph, problem, **kw)
 
 
 def solve_batch(graph, problem: Problem, **kw) -> DenseSubgraphResult:

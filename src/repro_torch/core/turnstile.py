@@ -439,8 +439,10 @@ class TurnstileDensest:
 
     def apply(self, insert_edges: EdgeBatch = None,
               delete_edges: EdgeBatch = None) -> "TurnstileDensest":
-        """Absorbs one ±edge batch (see :meth:`TurnstileSketch.apply`)."""
-        self.sketch.apply(insert_edges, delete_edges)
+        """Absorbs one ±edge batch (see :meth:`TurnstileSketch.apply`); K3
+        loads through the solver's cache of built kernels."""
+        with self.solver.kernel_cache(self.problem):
+            self.sketch.apply(insert_edges, delete_edges)
         return self
 
     def query(self) -> DenseSubgraphResult:

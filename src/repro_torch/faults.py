@@ -3,11 +3,15 @@ copied: that module imports no JAX, but the port imports nothing of the
 JAX package).
 
 Instrumented sites call :func:`fire` with a stable site name and, where it
-matters, a per-item key.  In the port so far only the turnstile decode
-fires (``turnstile.decode``, keyed by the level, in
-``core/turnstile.py``); the other sites of :data:`KNOWN_SITES` belong to
-runtimes not ported yet, and the tuple stays the reference's so a plan
-written for one package names the same sites in the other.  With no plan
+matters, a per-item key.  In the port the turnstile decode fires
+(``turnstile.decode``, keyed by the level, in ``core/turnstile.py``), the
+cache of built kernels (``progcache.load``/``progcache.store``, keyed by
+the entry path, in ``core/progcache.py``) and the query engine
+(``serve.solve``, keyed by the bucket or the fallback tag, in
+``serve/densest.py``); the streaming and spill sites of
+:data:`KNOWN_SITES` belong to runtimes not ported yet, and the tuple stays
+the reference's so a plan written for one package names the same sites in
+the other.  With no plan
 installed the hook is a module-global ``None`` check: no cost and no
 change of behavior.
 
@@ -33,7 +37,7 @@ site                        key                   effect of a failure
 ``streaming.chunk``         chunk index           chunk-worker retry path
 ``streaming.checkpoint_save``                     checkpoint write fails
 ``streaming.checkpoint_load``                     quarantine + fresh start
-``progcache.load``          entry path            fail-open recompile
+``progcache.load``          entry path            fail-open rebuild
 ``progcache.store``         entry path            best-effort store skipped
 ``edgelist.spill_publish``                        spill abort, rung dropped
 ``turnstile.decode``        level                 escalate a level sparser

@@ -62,6 +62,15 @@ class EdgeList:
     def num_real_edges(self) -> torch.Tensor:
         return self.mask.sum()
 
+    def to(self, device: Device) -> "EdgeList":
+        """The same graph on ``device`` (one copy per array; none where the
+        arrays already lie there)."""
+        dev = torch.device(device)
+        return dataclasses.replace(
+            self, src=self.src.to(dev), dst=self.dst.to(dev),
+            weight=self.weight.to(dev), mask=self.mask.to(dev),
+        )
+
     def with_padding(self, multiple: int) -> "EdgeList":
         """Pads the edge arrays so E is a multiple of ``multiple``."""
         pad = (-self.src.shape[0]) % multiple
@@ -223,22 +232,23 @@ def to_csr(edges: EdgeList, return_weights: bool = False):
     """Host-side CSR ``(indptr, indices[, weights])`` over the symmetrized
     adjacency (directed graphs: the out-adjacency), as numpy arrays, in the
     reference's order: a stable sort by source, each undirected edge listed
-    under both endpoints.  ``return_weights`` adds each slot's weight."""
-    mask = edges.mask.cpu().numpy()
-    src = edges.src.cpu().numpy()[mask]
-    dst = edges.dst.cpu().numpy()[mask]
-    w = edges.weight.cpu().numpy()[mask]
+    under both endpoints.  ``return_weights`` adds each slot's weight.
+
+    The sort runs where the graph lies (on the card for a device graph:
+    a stable sort of 128M ids at livejournal_md's scale takes
+    milliseconds there and seconds in numpy); the three arrays then come
+    to the host in one copy each."""
+    m = edges.mask
+    src, dst, w = edges.src[m], edges.dst[m], edges.weight[m]
     if edges.directed:
         s, d, ww = src, dst, w
     else:
-        s = np.concatenate([src, dst])
-        d = np.concatenate([dst, src])
-        ww = np.concatenate([w, w])
-    order = np.argsort(s, kind="stable")
-    s, d, ww = s[order], d[order], ww[order]
-    indptr = np.zeros(edges.n_nodes + 1, np.int64)
-    np.add.at(indptr, s + 1, 1)
-    indptr = np.cumsum(indptr)
+        s, d, ww = torch.cat([src, dst]), torch.cat([dst, src]), torch.cat([w, w])
+    s_sorted, order = torch.sort(s, stable=True)
+    # indptr[i] = the number of slots whose source is below i.
+    bounds = torch.arange(edges.n_nodes + 1, dtype=s.dtype, device=s.device)
+    indptr = torch.searchsorted(s_sorted, bounds).cpu().numpy()
+    indices = d[order].to(torch.int32).cpu().numpy()
     if return_weights:
-        return indptr, d.astype(np.int32), ww
-    return indptr, d.astype(np.int32)
+        return indptr, indices, ww[order].cpu().numpy()
+    return indptr, indices

@@ -3,19 +3,24 @@
 Each kernel package holds a CUDA source under ``csrc/``, a plain PyTorch
 version (``ref.py``) and a wrapper (``ops.py``).  Kernel modules are
 imported lazily and nothing is compiled at import: :func:`load_library`
-runs ``nvcc`` at a kernel's first launch.
+loads a kernel's library at its first launch from the persistent cache of
+built kernels (``core/progcache.py``), and runs ``nvcc`` only on a miss.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, Iterator, Sequence
 
 import torch
 
@@ -30,7 +35,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Seconds and compiler output of each build made in this process, by source.
+# Seconds and compiler output of each build made in this process, by source:
+# a process that found every library in the cache leaves it empty.
 BUILD_LOG: Dict[str, Dict[str, object]] = {}
 
 
@@ -65,34 +71,104 @@ def source_digest(source: Path) -> str:
     return h.hexdigest()[:16]
 
 
-def library_path(source: Path) -> Path:
-    """Where :func:`load_library` builds ``source``:
-    ``build/repro_torch/<stem>-<hash>.so`` (the hash covers the source and
-    the shared headers)."""
-    source = Path(source)
-    return BUILD_DIR / f"{source.stem}-{source_digest(source)}.so"
-
-
-def load_library(source: Path) -> ctypes.CDLL:
-    """Builds ``source`` into :func:`library_path` (once) and loads it."""
-    source = Path(source)
-    out = library_path(source)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), str(source)],
-            capture_output=True, text=True,
+def nvcc_build(source: Path, out: Path, flags: Sequence[str] = NVCC_FLAGS) -> str:
+    """Compiles ``source`` into the shared library ``out`` with ``nvcc
+    flags``; returns the compiler's diagnostics (``ptxas -v``).  The build
+    function :func:`load_library` calls unless it is given another."""
+    proc = subprocess.run(
+        [_nvcc(), *flags, "-I", str(CSRC_DIR), "-o", str(out), str(source)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed on {Path(source).name} ({proc.returncode}):\n"
+            f"{proc.stdout}\n{proc.stderr}"
         )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {source.name} ({proc.returncode}):\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
-        BUILD_LOG[source.name] = {
-            "seconds": time.perf_counter() - t0,
-            "ptxas": proc.stderr.strip(),
-        }
-    return ctypes.CDLL(str(out))
+    return proc.stderr.strip()
+
+
+class CacheCounters:
+    """Lookups of the cache of built kernels: entries loaded (``disk_hits``),
+    entries built (``disk_misses``) and builds that could not be published
+    (``disk_store_errors``).  :class:`~repro_torch.core.api.Solver` keeps
+    the same three counters for the loads its solves make."""
+
+    def __init__(self):
+        self.disk_hits = 0
+        self.disk_misses = 0
+        self.disk_store_errors = 0
+
+
+# Where a load outside any Solver's scope goes, and what it counts.
+_SCOPE: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_kernel_cache", default=(None, None)
+)
+PROCESS_COUNTERS = CacheCounters()
+
+
+@contextlib.contextmanager
+def kernel_cache(cache_dir, counters) -> Iterator[None]:
+    """Within the block, :func:`load_library` looks up and publishes built
+    kernels under ``cache_dir`` and counts in ``counters``; outside any
+    block, under :data:`BUILD_DIR` in :data:`PROCESS_COUNTERS`."""
+    token = _SCOPE.set((Path(cache_dir), counters))
+    try:
+        yield
+    finally:
+        _SCOPE.reset(token)
+
+
+def library_path(source: Path, flags: Sequence[str] = NVCC_FLAGS) -> Path:
+    """Where :func:`load_library` keeps ``source``'s library:
+    ``<dir>/<stem>-<hash>.so``, the hash over the source, the shared headers
+    and the build's environment (``core/progcache.py::fingerprint``)."""
+    from repro_torch.core import progcache
+
+    cache_dir, _ = _SCOPE.get()
+    return progcache.entry_path(cache_dir or BUILD_DIR, source, flags)
+
+
+def load_library(
+    source: Path,
+    *,
+    build: Callable[[Path, Path, Sequence[str]], str] = nvcc_build,
+    flags: Sequence[str] = NVCC_FLAGS,
+) -> ctypes.CDLL:
+    """Loads ``source``'s library from the cache of built kernels
+    (``core/progcache.py``) or, on a miss, builds it with ``build(source,
+    out, flags)`` (each build logged in :data:`BUILD_LOG`), publishes it
+    there and loads it.  A publish that fails is counted and logged once
+    per counter; the library is then built into a private temp directory
+    and loaded from there."""
+    from repro_torch.core import progcache
+
+    source = Path(source)
+    cache_dir, counters = _SCOPE.get()
+    cache_dir = Path(cache_dir or BUILD_DIR)
+    counters = counters if counters is not None else PROCESS_COUNTERS
+    path = progcache.entry_path(cache_dir, source, flags)
+    key = progcache.entry_key(source)
+    lib = progcache.load(path, key, flags)
+    if lib is not None:
+        counters.disk_hits += 1
+        return lib
+    counters.disk_misses += 1
+
+    def logged_build(out: Path) -> None:
+        t0 = time.perf_counter()
+        log = build(source, out, flags)
+        BUILD_LOG[source.name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+
+    if progcache.store(path, key, logged_build, flags):
+        return ctypes.CDLL(str(path))
+    counters.disk_store_errors += 1
+    if counters.disk_store_errors == 1:
+        logging.getLogger("repro_torch.progcache").warning(
+            "cache of built kernels: could not publish %s (dir=%s); kernels still "
+            "load, but a fresh process will build them again; further failures "
+            "are counted in disk_store_errors without logging", source.name, cache_dir,
+        )
+    with tempfile.TemporaryDirectory(prefix="repro_torch_build_") as private:
+        out = Path(private) / path.name
+        logged_build(out)
+        return ctypes.CDLL(str(out))  # stays mapped once the file is gone

@@ -83,7 +83,9 @@ def test_post_init_rejects_like_reference(kw):
 
 
 @pytest.mark.parametrize(
-    "kw", [dict(substrate="streaming"), dict(substrate="local"), dict(substrate="mesh")],
+    "kw",
+    [dict(substrate="streaming"), dict(substrate="streaming", compaction="off"),
+     dict(substrate="mesh")],
 )
 def test_unported_cells_raise_not_implemented(kw):
     edges = _port(erdos_renyi(50, avg_deg=4, seed=0))

@@ -10,6 +10,8 @@ the JAX package, so they run on a machine with the card and no JAX:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -679,3 +681,130 @@ def _numpy_tree(params):
     if isinstance(params, dict):
         return {k: _numpy_tree(v) for k, v in params.items()}
     return params.numpy()
+
+
+# -- per-seed serving and the cache of built kernels ---------------------------
+
+SERVE_FIELDS = ("qid", "seed", "density", "seed_in_set", "n_ego", "m_ego", "bucket",
+                "status", "fallback", "error", "attempts")
+
+
+def _serve_graph(device, weights=None):
+    edges = generators.chung_lu_power_law(20_000, avg_deg=8, seed=3, device=device)
+    if weights is not None:
+        edges = dataclasses.replace(edges, weight=weights.to(device))
+    return edges
+
+
+@pytest.mark.parametrize("extraction", ["bfs", "local"])
+def test_query_engine_on_card_equals_cpu(cuda, extraction):
+    """The engine on the card answers what it answers on the CPU (unit
+    weights: bitwise), one stacked solve per bucket group, no kernel built
+    after the first query."""
+    from repro_torch import kernels
+    from repro_torch.serve import DensestQueryEngine
+
+    seeds = np.random.default_rng(0).integers(0, 20_000, 48).tolist()
+    answers = []
+    for device in (cuda, "cpu"):
+        eng = DensestQueryEngine(_serve_graph(device), Problem.undirected(eps=0.5),
+                                 extraction=extraction, radius=1, max_ego_nodes=128,
+                                 max_batch=16, time_fn=lambda: 0.0)
+        assert eng.device.type == torch.device(device).type
+        answers.append(eng.query_many(seeds))
+        built = dict(kernels.BUILD_LOG)
+        answers[-1] += eng.query_many(seeds[:16])
+        assert kernels.BUILD_LOG == built
+    for a, b in zip(*answers):
+        for f in SERVE_FIELDS:
+            assert getattr(a, f) == getattr(b, f), f
+        np.testing.assert_array_equal(a.nodes, b.nodes)
+
+
+def test_query_engine_float_weights_on_card(cuda):
+    """Float weights: the card's atomics sum each lane's degrees in another
+    order, so densities are held to rtol 1e-5 (f32 reassociation)."""
+    from repro_torch.serve import DensestQueryEngine
+
+    m = _serve_graph("cpu").n_edges_padded
+    w = torch.from_numpy(np.random.default_rng(1).random(m).astype(np.float32) + 0.5)
+    seeds = np.random.default_rng(2).integers(0, 20_000, 32).tolist()
+    got, want = (DensestQueryEngine(_serve_graph(dev, w), Problem.undirected(eps=0.5),
+                                    radius=1, max_ego_nodes=128).query_many(seeds)
+                 for dev in (cuda, "cpu"))
+    for a, b in zip(got, want):
+        assert a.bucket == b.bucket and a.n_ego == b.n_ego
+        assert a.density == pytest.approx(b.density, rel=1e-5, abs=1e-6)
+
+
+def test_local_front_door_on_card_equals_cpu(cuda):
+    for seed in (0, 17, 4242):
+        got, want = (solve(_serve_graph(dev), Problem(substrate="local"), seed=seed)
+                     for dev in (cuda, "cpu"))
+        assert got.best_alive.device.type == "cuda"
+        _equal_results(got, want)
+        assert got.extras["local"]["bucket"] == want.extras["local"]["bucket"]
+
+
+def test_turnstile_service_on_card(cuda):
+    """K3 once per applied batch; the pallas sample peel through K1 once a
+    pass; the same density as the service on the CPU."""
+    from repro_torch.serve import TurnstileDensityService
+
+    edges = _serve_graph("cpu")
+    src, dst = edges.src.numpy(), edges.dst.numpy()
+    prob = Problem.undirected(stream_mode="turnstile", sample_edges=1 << 11, backend="pallas")
+    got = TurnstileDensityService(edges.n_nodes, prob, device=cuda)
+    want = TurnstileDensityService(edges.n_nodes, prob, device="cpu")
+    k3, k1 = l0_delta.launches, tiled_degrees.launches
+    for svc in (got, want):
+        svc.apply(insert_edges=(src, dst))
+        svc.apply(delete_edges=(src[:500], dst[:500]))
+    assert l0_delta.launches == k3 + 2
+    res = got.result()
+    assert tiled_degrees.launches - k1 == res.passes > 0
+    assert got.density() == want.density()
+    assert got.stats()["queries_computed"] == 1
+
+
+def test_warm_build_directory_builds_nothing_in_a_fresh_process(cuda, tmp_path):
+    """All four libraries built into a fresh directory with nvcc; a fresh
+    process loads them with no build; one changed nvcc flag misses."""
+    import concurrent.futures
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch import kernels
+    from repro_torch.kernels.count_sketch import ops as cs_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.l0_sampler import ops as l0_ops
+    from repro_torch.kernels.peel_degree import ops as pd_ops
+
+    sources = [pd_ops.SOURCE, cs_ops.SOURCE, l0_ops.SOURCE, fa_ops.SOURCE]
+    counters = kernels.CacheCounters()
+
+    def build(src):
+        with kernels.kernel_cache(tmp_path, counters):
+            return kernels.load_library(src)
+
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(build, sources))
+    assert counters.disk_misses == 4 and counters.disk_store_errors == 0
+    child = (
+        "import sys; from pathlib import Path; from repro_torch import kernels\n"
+        "def never(*a): raise SystemExit('nvcc ran')\n"
+        "flags = tuple('-O2' if f == '-O3' else f for f in kernels.NVCC_FLAGS)\n"
+        "c = kernels.CacheCounters()\n"
+        f"with kernels.kernel_cache({str(tmp_path)!r}, c):\n"
+        f"    for s in {[str(s) for s in sources]!r}: kernels.load_library(Path(s), build=never)\n"
+        "    assert kernels.BUILD_LOG == {} and c.disk_hits == 4, (kernels.BUILD_LOG, vars(c))\n"
+        f"    kernels.load_library(Path({str(l0_ops.SOURCE)!r}), flags=flags)\n"
+        "assert c.disk_misses == 1 and list(kernels.BUILD_LOG) == ['l0_sampler.cu']\n"
+        "print('WARM_OK')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
+    out = subprocess.run([sys.executable, "-c", child], capture_output=True, text=True,
+                         env=env, timeout=600)
+    assert out.returncode == 0 and "WARM_OK" in out.stdout, out.stdout + out.stderr

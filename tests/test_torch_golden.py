@@ -1,6 +1,7 @@
 """The JAX golden fixture for the card stays true: every entry of
 tests/fixtures/torch_port/golden.json (cells exact, pallas, sketch and
-turnstile, on two graphs; Algorithms 2 and 3 and an eps sweep; the REDUCED
+turnstile, on two graphs; Algorithms 2 and 3 and an eps sweep; per-seed
+serving in both extraction modes and the local front door; the REDUCED
 llama3.2-3b's prefill logits, greedy tokens and margins) is recomputed with ``repro`` here, and the port's CPU
 answers meet it too (``chip_smoke.py`` holds the port's CUDA answers
 against the same file, on a machine without JAX)."""
@@ -57,6 +58,22 @@ def test_objective_golden_matches_reference(case):
 @pytest.mark.parametrize("case", golden.OBJECTIVE_CASES)
 def test_port_cpu_meets_objective_golden(case):
     assert golden.port_objective_entry(case, "cpu") == _load()["objectives"]["answers"][case]
+
+
+# -- the serve entries (the query engine in both modes, the local front door) --
+
+
+@pytest.mark.parametrize("case", golden.SERVE_CASES)
+def test_serve_golden_matches_reference(case):
+    fixture = _load()["serve"]
+    assert fixture["problem"] == golden.SERVE_PROBLEM and fixture["engine"] == golden.SERVE_ENGINE
+    assert fixture["queries"] == golden.SERVE_QUERIES
+    assert fixture["answers"][case] == golden.reference_serve_entry(case)
+
+
+@pytest.mark.parametrize("case", golden.SERVE_CASES)
+def test_port_cpu_meets_serve_golden(case):
+    assert golden.port_serve_entry(case, "cpu") == _load()["serve"]["answers"][case]
 
 
 # -- the LM entries (REDUCED llama3.2-3b, float32 compute) ---------------------

@@ -51,6 +51,9 @@ PORT_MODULES = (
     "repro_torch.configs", "repro_torch.configs.llama3_2_3b",
     "repro_torch.configs.starcoder2_7b", "repro_torch.configs.qwen2_72b",
     "repro_torch.train.step", "repro_torch.launch.serve",
+    "repro_torch.ioutil", "repro_torch.core.local", "repro_torch.core.progcache",
+    "repro_torch.serve", "repro_torch.serve.densest", "repro_torch.serve.resilience",
+    "repro_torch.serve.turnstile",
 )
 
 
@@ -93,6 +96,23 @@ def test_entry_points_raise_without_cuda_and_without_device():
         generators.directed_planted(100, 3, 10, 5, 0.5, seed=0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         generators.bipartite_spam(50, 40, 3, 5, 5, 0.5, seed=0)
+
+
+def test_serving_entry_points_raise_without_cuda_and_without_device():
+    """The turnstile density service defaults to the card; the query engine
+    and ``solve(..., seed=)`` run on their graph's device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is the card")
+    from repro_torch.core import Problem, solve
+    from repro_torch.graph.edgelist import from_numpy
+    from repro_torch.serve import DensestQueryEngine, TurnstileDensityService
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TurnstileDensityService(10)
+    g = from_numpy(np.array([0, 1]), np.array([1, 2]), 3, device="cpu")
+    assert DensestQueryEngine(g).device == torch.device("cpu")
+    res = solve(g, Problem(substrate="local"), seed=0)
+    assert res.best_alive.device == torch.device("cpu")
 
 
 def test_lm_entry_points_raise_without_cuda_and_without_device():

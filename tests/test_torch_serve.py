@@ -122,3 +122,24 @@ def test_queue_sheds_when_full():
     shed = Request(rid=1, prompt=prompts[1], max_new=2)
     assert not eng.submit(shed) and shed.rejected and eng.rejected == 1
     assert [r.rid for r in eng.run_to_completion()] == [0]
+
+
+def test_serve_engine_bounded_queue_sheds():
+    """The reference's unit-level shedding test
+    (tests/test_resilience.py::test_serve_engine_bounded_queue_sheds), run on
+    both engines side by side: the same outcomes, counts and flags."""
+    import collections
+
+    outcomes = []
+    for engine_cls, request_cls in ((ServeEngine, Request), (RefEngine, RefRequest)):
+        eng = engine_cls.__new__(engine_cls)
+        eng.queue = collections.deque()
+        eng.max_queue = 2
+        eng.rejected = 0
+        reqs = [request_cls(rid=i, prompt=np.zeros(2, np.int32)) for i in range(4)]
+        outcomes.append(([eng.submit(r) for r in reqs], eng.rejected, len(eng.queue),
+                         [r.rejected for r in reqs]))
+    assert outcomes[0] == outcomes[1] == ([True, True, False, False], 2, 2,
+                                          [False, False, True, True])
+    with pytest.raises(ValueError, match="max_queue"):
+        ServeEngine(None, get_arch("llama3.2-3b").reduced_config, max_queue=0, device="cpu")

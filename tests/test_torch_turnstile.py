@@ -6,7 +6,11 @@ the port, and wherever the reference is deterministic the two packages are
 held equal: the sketch tensors, the recovered edges and level, and the
 query results, bit for bit.  The reference's one-compile-per-bucket test
 has its counterpart in tests/test_torch_cuda.py (one K3 launch per batch on
-the card), and its serving test waits for the serving runtime.
+the card).  Its serving test and the turnstile-service cases of
+tests/test_resilience.py run the port's ``TurnstileDensityService`` beside
+the reference's: the same densities, bit for bit, and the same ``stats()``
+except ``update_trace_count``, which counts the reference's compiles and
+the port's K3 builds (none on the CPU).
 """
 
 import dataclasses
@@ -363,3 +367,86 @@ def test_property_split_invariance(seed, cut):
            .apply(insert_edges=e[:cut]).apply(insert_edges=e[cut:]))
     assert torch.equal(one.tables, two.tables)
     _same_tables(one, RefSketch(500, 256, seed=9).apply(insert_edges=e))
+
+
+# -- serving: the density service ----------------------------------------------
+
+
+def _services(n, serve_stale=True, **kw):
+    from repro.serve import TurnstileDensityService as RefService
+    from repro_torch.serve import TurnstileDensityService
+
+    prob = dict(stream_mode="turnstile", **kw)
+    return (TurnstileDensityService(n, api.Problem.undirected(**prob), serve_stale=serve_stale,
+                                    device=CPU),
+            RefService(n, ref_api.Problem.undirected(**prob), serve_stale=serve_stale))
+
+
+def _same_stats(svc, ref):
+    got, want = svc.stats(), ref.stats()
+    assert sorted(got) == sorted(want)
+    assert got.pop("update_trace_count") == 0  # no K3 build on the CPU
+    want.pop("update_trace_count")
+    assert got == want
+
+
+def test_serve_service_caches_between_updates():
+    from repro.serve import DensestQueryEngine as RefEngine
+    from repro_torch.serve import DensestQueryEngine, TurnstileDensityService
+
+    g = chung_lu_power_law(700, seed=2)
+    src, dst = _live_edges(g)
+    pair = _services(700, sample_edges=1 << 10)
+    densities = []
+    for svc in pair:
+        svc.apply(insert_edges=(src, dst))
+        d1, d2 = svc.density(), svc.density()  # no update between: the cache
+        assert d1 == d2
+        assert svc.stats()["queries_served"] == 2 and svc.stats()["queries_computed"] == 1
+        svc.apply(delete_edges=(src[:40], dst[:40]))
+        densities.append((d1, svc.density()))
+        assert svc.stats()["queries_computed"] == 2
+    assert densities[0] == densities[1]
+    _same_stats(*pair)
+    svc = pair[0]
+    eng = DensestQueryEngine(_port(g)).attach_turnstile(svc)
+    assert eng.current_density() == svc.density()
+    assert svc.stats()["queries_computed"] == 2  # attachment reads the cache
+    assert RefEngine(g).attach_turnstile(pair[1]).current_density() == eng.current_density()
+    with pytest.raises(ValueError, match="n_nodes"):
+        DensestQueryEngine(_port(g)).attach_turnstile(TurnstileDensityService(701, device=CPU))
+    with pytest.raises(ValueError, match="attach_turnstile"):
+        DensestQueryEngine(_port(g)).current_density()
+
+
+def test_service_serves_stale_on_recovery_failure():
+    rng = np.random.default_rng(0)
+    e1 = rng.integers(0, 300, size=(200, 2)).astype(np.int32)
+    e1 = e1[e1[:, 0] != e1[:, 1]]
+    e2 = np.asarray([[1, 2], [2, 3], [1, 3]], np.int32)
+    pair = _services(300, sample_edges=1 << 10)
+    for svc, module in zip(pair, (faults, ref_faults)):
+        svc.apply(insert_edges=e1)
+        d0 = svc.density()
+        svc.apply(insert_edges=e2)  # marks the cached answer stale
+        with module.active(module.FaultPlan().fail_prob("turnstile.decode", 1.0)):
+            assert svc.density() == d0  # recompute fails: the last good answer
+        st = svc.stats()
+        assert st["stale_results_served"] == 1 and st["queries_failed"] == 1
+        assert "recovery failed" in st["last_error"] and "disk_store_errors" in st
+        before = svc.queries_computed
+        assert np.isfinite(svc.density())  # the dirty flag survived
+        assert svc.queries_computed == before + 1
+    _same_stats(*pair)
+    assert pair[0].density() == pair[1].density()
+
+
+def test_service_serve_stale_off_raises():
+    for svc, module in zip(_services(100, serve_stale=False, sample_edges=1 << 8),
+                           (faults, ref_faults)):
+        svc.apply(insert_edges=np.asarray([[0, 1], [1, 2]], np.int32))
+        svc.density()
+        svc.apply(insert_edges=np.asarray([[2, 3]], np.int32))
+        with module.active(module.FaultPlan().fail_prob("turnstile.decode", 1.0)):
+            with pytest.raises(RuntimeError):
+                svc.density()
