@@ -5,7 +5,7 @@
 
 Builds the port's four CUDA kernels from the sources in this checkout (one
 ``nvcc`` each, all started together), holds each against its plain PyTorch
-version on the card, then drives the port's six paths through the
+version on the card, then drives the port's seven paths through the
 entry points a user calls:
 
 * Algorithm 1 on the geometric ladder, ``solve(edges,
@@ -32,6 +32,11 @@ entry points a user calls:
   service attached (K3 on every update batch, K1 on its sample peel), a
   fresh process that loads the four libraries from the cache of built
   kernels with no ``nvcc``, and the golden fixture's serve entries;
+* the semi-streaming substrate: livejournal_md written to a memmap store
+  on disk and streamed in 2^20-edge chunks by ``StreamingDensest`` with its
+  node state on the card (no kernel of K1-K4; ``index_add_``), against the
+  in-memory exact ladder, with the spill ladder, a kill and resume, and a
+  seeded fault storm; the front door on flickr_sm against the CPU driver;
 * the LM path at the full width of llama3.2-3b (28 layers, random weights
   from a seeded ``torch.Generator``): ``prefill`` of an 8,192-token prompt
   with ``attn_impl='pallas'`` (K4, flash attention, once per layer)
@@ -545,10 +550,23 @@ def phase_flickr(flickr) -> dict:
     return {"launches": launches_p}
 
 
+def _union_ms(intervals) -> float:
+    """Total length of the union of ``(start, end)`` microsecond intervals,
+    in ms: the time at least one device activity ran."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
 def phase_profile(label: str, run) -> None:
     """Where one run's device time goes, by kernel name (torch.profiler),
     and the device's busy share of its wall time (the wall measured on a
-    run without the profiler)."""
+    run without the profiler): ``device_busy_ms`` sums every activity's
+    time, ``device_busy_union_ms`` counts time when activities on several
+    streams overlap once, and the idle share is taken from the union."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -570,8 +588,11 @@ def phase_profile(label: str, run) -> None:
         log("profile", run=label,
             device_time="not measured (the profiler recorded no device events)", wall_ms=wall_ms)
         return
+    union_ms = _union_ms((ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                         if ev.device_type == torch.autograd.DeviceType.CUDA)
     log("profile", run=label, wall_ms=wall_ms, device_busy_ms=busy_ms,
-        device_busy_share=busy_ms / wall_ms, device_idle_share=1 - busy_ms / wall_ms)
+        device_busy_union_ms=union_ms, device_busy_share=union_ms / wall_ms,
+        device_idle_share=1 - union_ms / wall_ms)
     for ev in sorted(rows, key=dev_us, reverse=True)[:15]:
         print(f"  {dev_us(ev) / 1e3:9.4f} ms  x{ev.count:<4d} {ev.key[:110]}", flush=True)
 
@@ -1470,6 +1491,234 @@ def phase_golden_serve() -> None:
         log("golden", serve_case=case, equal="JAX golden", entries=len(got))
 
 
+# -- the semi-streaming substrate (livejournal_md from a disk memmap) ----------
+
+# The Problem defaults: 2^20-edge chunks, 4 workers, a window of 8 chunks.
+STREAM_CHUNK = 1 << 20
+STREAM_WORKERS = 4
+STREAM_PREFETCH = 8
+# Faults of the storm run: the first attempt of these chunk keys fails, and
+# the first attempt of STREAM_SLOW_KEY sleeps (a straggler).
+STREAM_FAIL_KEYS = (3, 17, 40)
+STREAM_SLOW_KEY = 5
+STREAM_SLOW_S = 0.2
+F32_EXACT = 1 << 24  # f32 sums of unit weights are exact below this
+
+
+def _stream_state_vs_ladder(what: str, st, res) -> dict:
+    """A streaming run's state against the in-memory exact ladder's result:
+    the best set, the best density's f32 bits, passes and history_n bitwise;
+    history_m and history_rho bitwise on every pass whose alive edge count
+    is below 2^24.  Above it the ladder's f32 sum of unit weights rounds in
+    its reduction order while the driver adds chunk totals in f64 and
+    rounds once: those passes must agree within 2 ulps, and the count of
+    passes that differ is returned."""
+    import numpy as np
+
+    if st.pass_idx != res.passes:
+        raise AssertionError(f"{what}: passes {st.pass_idx} != ladder's {res.passes}")
+    if not np.array_equal(st.best_alive, res.best_alive.cpu().numpy()):
+        raise AssertionError(f"{what}: best set differs from the ladder's")
+    if np.float32(st.best_rho).tobytes() != res.best_density.cpu().numpy().tobytes():
+        raise AssertionError(f"{what}: best density {st.best_rho} != {float(res.best_density)}")
+    hist = np.asarray(st.history, np.float64).reshape(-1, 3)
+    k = st.pass_idx
+    want = [getattr(res, f).cpu().numpy()[:k] for f in ("history_n", "history_m", "history_rho")]
+    if not np.array_equal(hist[:, 0].astype(np.int32), want[0]):
+        raise AssertionError(f"{what}: history_n differs")
+    rounded = 0
+    for col, ref in ((hist[:, 1].astype(np.float32), want[1]),
+                     (hist[:, 2].astype(np.float32), want[2])):
+        ulps = np.abs(col.view(np.int32).astype(np.int64) - ref.view(np.int32))
+        big = hist[:, 1] >= F32_EXACT
+        if (ulps[~big] != 0).any() or (ulps[big] > 2).any():
+            raise AssertionError(f"{what}: history differs from the ladder's: ulps {ulps.tolist()}")
+        rounded += int((ulps != 0).sum())
+    return {"passes_f32_rounded": rounded}
+
+
+def stream_inputs(lj):
+    """The livejournal_md edges on the host (what the store is written
+    from) and the in-memory exact ladder on the card, with its peak device
+    memory (graph included: it is the ladder's input)."""
+    from repro_torch.core import Problem, solve
+
+    m = lj.mask
+    host = tuple(a[m].cpu().numpy() for a in (lj.src, lj.dst, lj.weight))
+    graph_mb = sum(t.numel() * t.element_size() for t in (lj.src, lj.dst, lj.weight, lj.mask))
+    ladder, wall, syncs, peak = _peak_run(lambda: solve(lj, Problem.undirected(
+        eps=EPS, backend="exact", track_history=True)))
+    log("stream.ladder", graph="livejournal_md", wall_ms=wall, passes=ladder.passes,
+        host_syncs=syncs, peak_device_mb_with_graph=peak + graph_mb / 2**20,
+        rho=float(ladder.best_density), size=int(ladder.best_size))
+    return host, ladder, peak + graph_mb / 2**20
+
+
+def _stream_run(store, n_nodes, max_passes=None, resume=False, **kw):
+    """One streaming solve from the store on the card: (state, driver, wall
+    ms, host syncs, peak device MB), every allocation of the run counted
+    (nothing else is on the card)."""
+    from repro_torch.core import StreamingDensest, chunked_from_memmap
+
+    drv = StreamingDensest(chunked_from_memmap(store, STREAM_CHUNK), n_nodes, eps=EPS,
+                           n_workers=STREAM_WORKERS, prefetch=STREAM_PREFETCH, device=DEV,
+                           compaction="geometric", **kw)
+    st, wall, syncs, peak = _peak_run(lambda: drv.run(max_passes=max_passes, resume=resume))
+    return st, drv, wall, syncs, peak
+
+
+def _same_stream(what: str, got, want) -> None:
+    import numpy as np
+
+    if (got.best_rho != want.best_rho or got.pass_idx != want.pass_idx
+            or got.history != want.history or not np.array_equal(got.best_alive, want.best_alive)
+            or not np.array_equal(got.alive, want.alive)):
+        raise AssertionError(f"{what}: differs from the streaming run from disk")
+
+
+def phase_stream(host, ladder, ladder_peak_mb, smi: str) -> None:
+    """``stream``: livejournal_md written once to a memmap store in a
+    temporary directory, then ``StreamingDensest(chunked_from_memmap(store,
+    2^20), eps=0.5, compaction='geometric', device='cuda')`` at the Problem
+    defaults (4 workers, window 8), against the in-memory exact ladder;
+    again with ``spill_dir`` and a residency cap below the first rung's
+    survivors; killed after 3 passes and resumed; under a seeded fault
+    storm; each bitwise equal to the first run.  Host syncs, bytes to the
+    card and edges streamed per pass, peak device memory against the
+    ladder's, K1-K4 launches (none), one pass's profile and its host-read
+    time."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import faults
+    from repro_torch.core.streaming import _host_chunk, chunked_from_memmap
+    from repro_torch.graph.edgelist import save_edges_memmap
+
+    n = LIVEJOURNAL["n"]
+    counters = _kernel_counters()
+    with tempfile.TemporaryDirectory(prefix="stream_smoke_") as tmp:
+        t0 = time.perf_counter()
+        store = save_edges_memmap(f"{tmp}/store", *host)
+        disk_mb = sum(a.nbytes for a in host) / 2**20
+        log("stream.store", edges=len(host[0]), disk_mb=disk_mb,
+            write_s=time.perf_counter() - t0)
+        for c in counters:
+            c.launches = 0
+        st, drv, wall, syncs, peak = _stream_run(store, n)
+        launches = {c.__name__: c.launches for c in counters}
+        if any(launches.values()):
+            raise AssertionError(f"the streaming path launched a kernel: {launches}")
+        streamed = drv.bytes_to_device // 12
+        log("stream", run="disk", card=smi, wall_ms=wall, passes=st.pass_idx,
+            compactions=drv.compactions, host_syncs=syncs,
+            host_syncs_per_pass=syncs / st.pass_idx,
+            bytes_to_device_per_pass=drv.bytes_to_device / st.pass_idx,
+            edges_streamed=streamed, edges_streamed_per_s=streamed / (wall / 1e3),
+            speculative_reissues=drv.speculative_reissues,
+            peak_resident_chunks=drv.peak_resident_chunks,
+            peak_resident_edges=drv.peak_resident_edges, peak_device_mb=peak,
+            ladder_peak_device_mb=ladder_peak_mb, kernel_launches=launches,
+            rho=st.best_rho, size=int(st.best_alive.sum()))
+        rounded = _stream_state_vs_ladder("stream vs in-memory ladder", st, ladder)
+        log("stream", equal="== the in-memory exact ladder (set, density, passes, history)",
+            **rounded)
+
+        # The spill ladder: survivors on disk, the host holding only the
+        # window.  The cap is the window; without a spill the first rung's
+        # survivors must overflow it.
+        cap = STREAM_PREFETCH * STREAM_CHUNK
+        try:
+            _stream_run(store, n, residency_cap_edges=cap)
+        except RuntimeError as e:
+            if "spill_dir" not in str(e):
+                raise
+        else:
+            raise AssertionError("the capped in-RAM rebuild did not refuse")
+        sp, sdrv, swall, ssyncs, speak = _stream_run(store, n, residency_cap_edges=cap,
+                                                      spill_dir=f"{tmp}/spill")
+        _same_stream("spill run", sp, st)
+        if sdrv.spill_rungs < 1 or sdrv.peak_resident_edges > cap:
+            raise AssertionError(f"spill run: {sdrv.spill_rungs} rungs, "
+                                 f"{sdrv.peak_resident_edges} edges resident")
+        log("stream", run="spill", wall_ms=swall, passes=sp.pass_idx,
+            spill_rungs=sdrv.spill_rungs, host_syncs=ssyncs,
+            peak_resident_edges=sdrv.peak_resident_edges, residency_cap_edges=cap,
+            peak_device_mb=speak, equal="== disk run bitwise")
+
+        # Kill after 3 passes, resume from the checkpoint.
+        ck = f"{tmp}/ck"
+        part, _, kwall, _, _ = _stream_run(store, n, checkpoint_dir=ck, max_passes=3)
+        res, _, rwall, rsyncs, _ = _stream_run(store, n, checkpoint_dir=ck, resume=True)
+        if part.pass_idx != 3:
+            raise AssertionError(f"the killed run made {part.pass_idx} passes")
+        _same_stream("kill/resume", res, st)
+        log("stream", run="kill_resume", killed_wall_ms=kwall, resumed_wall_ms=rwall,
+            resumed_passes=res.pass_idx - 3, resumed_host_syncs=rsyncs,
+            equal="== disk run bitwise")
+
+        # A seeded fault storm on the chunk site.
+        plan = faults.FaultPlan(seed=0).latency("streaming.chunk", STREAM_SLOW_S,
+                                                key=STREAM_SLOW_KEY, nth=(1,))
+        for k in STREAM_FAIL_KEYS:
+            plan = plan.fail_nth("streaming.chunk", 1, key=k)
+        with faults.active(plan):
+            fs, fdrv, fwall, _, _ = _stream_run(store, n)
+        _same_stream("fault storm", fs, st)
+        if fdrv.speculative_reissues < 1:
+            raise AssertionError("the fault storm re-issued no chunk")
+        log("stream", run="fault_storm", wall_ms=fwall, failed_keys=list(STREAM_FAIL_KEYS),
+            slow_key=STREAM_SLOW_KEY, speculative_reissues=fdrv.speculative_reissues,
+            equal="== disk run bitwise")
+
+        # Where one full pass goes: the host reads (memmap -> staged
+        # arrays, one thread), then the card's side by the profiler.
+        stream = chunked_from_memmap(store, STREAM_CHUNK)
+        out = _host_chunk(next(stream()))
+        t0 = time.perf_counter()
+        for chunk in stream():
+            _host_chunk(chunk, [o[: len(chunk[0])] for o in out])
+        log("stream.pass", host_read_ms_one_thread=(time.perf_counter() - t0) * 1e3,
+            chunks=-(-len(host[0]) // STREAM_CHUNK))
+        alive = torch.ones(n, dtype=torch.bool, device=DEV)
+        phase_profile("stream_one_pass", lambda: drv._pass_stats(alive, stream))
+
+
+def phase_stream_flickr(flickr, flickr_cpu) -> None:
+    """``stream.flickr``: the front door ``solve(g, Problem(substrate=
+    'streaming'))`` on flickr_sm with its node state on the card == the same
+    on the CPU, bitwise; then the golden fixture's streaming entries on the
+    card."""
+    import torch_port_golden as golden
+    from repro_torch.core import Problem, solve
+
+    prob = Problem.undirected(eps=EPS, substrate="streaming", track_history=True)
+    card, wall, syncs, peak = _peak_run(lambda: solve(flickr, prob))
+    t0 = time.perf_counter()
+    cpu = solve(flickr_cpu, prob)
+    cpu_s = time.perf_counter() - t0
+    _same_outcome("stream flickr card vs CPU", card, cpu)
+    log("stream.flickr", wall_ms=wall, cpu_wall_s=cpu_s, passes=card.passes, host_syncs=syncs,
+        peak_device_mb=peak, streaming=card.extras["streaming"],
+        equal="card == CPU bitwise (sets, density, passes, history)")
+    with open(golden.GOLDEN) as f:
+        fixture = json.load(f)["streaming"]["answers"]
+    for case in golden.STREAM_CASES:
+        if golden.port_stream_entry(case, DEV) != fixture[case]:
+            raise AssertionError(f"golden streaming {case} differs from the JAX golden")
+        log("golden", stream_case=case, equal="JAX golden")
+
+
+def _kernel_counters():
+    """The four kernels' launch-counting wrappers."""
+    from repro_torch.kernels.count_sketch.ops import count_sketch_update
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.l0_sampler.ops import l0_delta
+    from repro_torch.kernels.peel_degree.ops import tiled_degrees
+
+    return (tiled_degrees, count_sketch_update, l0_delta, flash_attention)
+
+
 # -- Algorithms 2 and 3 and the sweep driver, through K1 and K2 ---------------
 
 # Algorithm 2's size floor at flickr_sm: the undirected best set there is a
@@ -2056,7 +2305,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    phase_environment()
+    smi = phase_environment()
     phase_build()
     # Path 1: Algorithm 1 on the ladder through K1 (flickr_sm).
     t0 = time.perf_counter()
@@ -2079,8 +2328,13 @@ def main() -> int:
         eps=EPS, backend="auto")))
     # Path 6 (its livejournal_md part): per-seed local serving.
     phase_serve_livejournal(lj)
+    # Path 7: the semi-streaming substrate, livejournal_md from a disk
+    # memmap with nothing else on the card.
+    lj_host, ladder, ladder_peak_mb = stream_inputs(lj)
     del lj
     torch.cuda.empty_cache()
+    phase_stream(lj_host, ladder, ladder_peak_mb, smi)
+    del lj_host, ladder
     # Path 3: the turnstile runtime through K3 (and K1 on the sample).
     k3 = phase_l0_kernel(flickr)
     k3.update(phase_turnstile(flickr))
@@ -2095,6 +2349,7 @@ def main() -> int:
     phase_serve(flickr, flickr_cpu, "bfs")
     phase_serve(flickr, flickr_cpu, "local")
     phase_serve_resilience(flickr, flickr_cpu)
+    phase_stream_flickr(flickr, flickr_cpu)
     del flickr_cpu
     phase_build_cache()
     phase_golden_serve()

@@ -54,6 +54,14 @@ first :data:`SERVE_FRONT_DOOR` of those seeds, each a ``record`` plus the
 exploration counters of ``extras['local']`` and the sha256 of its
 candidate set.
 
+The ``streaming`` section holds the semi-streaming substrate,
+``solve(graph, Problem.undirected(eps=0.5, substrate='streaming', ...))``,
+each case named ``<graph>.<compaction>[.chunk<N>]``: compaction ``off`` and
+``geometric`` at the default ``stream_chunk`` (2^20) on both graphs, and
+the geometric ladder on the quickstart graph in 1,000-edge chunks.  A
+record adds the sha256 of the history (int32 ``history_n``, then float32
+``history_m`` and ``history_rho``) and the ladder's ``compactions``.
+
 The pallas entries come from the reference's tiled-degree kernel K1: the
 quickstart graph through the real ``backend='pallas'`` cell (Pallas in
 interpret mode off-TPU); the 200k graph through K1's jnp oracle
@@ -97,6 +105,10 @@ SERVE_QUERIES = 24
 SERVE_FRONT_DOOR = 4
 SERVE_CASES = tuple(f"{kind}.{g}" for kind in ("engine.bfs", "engine.local", "local")
                     for g in GRAPHS)
+STREAM_CASES = {
+    **{f"{g}.{c}": dict(compaction=c) for g in GRAPHS for c in ("off", "geometric")},
+    "quickstart.geometric.chunk1000": dict(compaction="geometric", stream_chunk=1000),
+}
 
 
 def f32_hex(x) -> str:
@@ -305,6 +317,40 @@ def port_objective_entry(case: str, device):
     res = solve_batch(graph(rest), Problem.undirected(backend="pallas"), eps=list(SWEEP_EPS))
     return [record(res.best_alive[i].cpu().numpy(), res.best_density[i].cpu().numpy(),
                    res.best_size[i].cpu(), res.passes[i]) for i in range(len(SWEEP_EPS))]
+
+
+# -- the streaming entries (the semi-streaming substrate) ---------------------
+
+
+def stream_record(res, host=np.asarray) -> dict:
+    """A streaming entry from a result, ``host`` bringing its arrays to
+    numpy."""
+    hist = b"".join(np.ascontiguousarray(host(getattr(res, f)), dt).tobytes() for f, dt in (
+        ("history_n", np.int32), ("history_m", np.float32), ("history_rho", np.float32)))
+    return record(host(res.best_alive), host(res.best_density), host(res.best_size),
+                  res.passes, history_sha256=hashlib.sha256(hist).hexdigest(),
+                  compactions=int(res.extras["streaming"]["compactions"]))
+
+
+def reference_stream_entry(case: str) -> dict:
+    """One streaming entry, computed by the JAX package."""
+    from repro.core import Problem, solve
+
+    res = solve(make_graph(case.split(".")[0]),
+                Problem.undirected(eps=EPS, substrate="streaming", **STREAM_CASES[case]))
+    return stream_record(res)
+
+
+def port_stream_entry(case: str, device) -> dict:
+    """The port's answer for one streaming case, its node state on ``device``."""
+    from repro_torch.core import Problem, solve
+    from repro_torch.graph import generators
+
+    gen, kw = GRAPHS[case.split(".")[0]]
+    out = getattr(generators, gen)(**kw, device=device)
+    edges = out[0] if isinstance(out, tuple) else out
+    res = solve(edges, Problem.undirected(eps=EPS, substrate="streaming", **STREAM_CASES[case]))
+    return stream_record(res, host=lambda t: t.cpu().numpy())
 
 
 # -- the serve entries (per-seed serving and the local front door) ------------
@@ -536,6 +582,10 @@ def compute() -> dict:
             "sweep_eps": list(SWEEP_EPS),
             "answers": {case: reference_objective_entry(case) for case in OBJECTIVE_CASES},
         },
+        "streaming": {
+            "cases": STREAM_CASES,
+            "answers": {case: reference_stream_entry(case) for case in STREAM_CASES},
+        },
         "serve": {
             "problem": SERVE_PROBLEM, "engine": SERVE_ENGINE, "queries": SERVE_QUERIES,
             "front_door": SERVE_FRONT_DOOR,
@@ -560,6 +610,7 @@ def main() -> int:
     os.replace(tmp, GOLDEN)
     print(json.dumps(golden["answers"], indent=1, sort_keys=True))
     print(json.dumps(golden["objectives"]["answers"], indent=1, sort_keys=True))
+    print(json.dumps(golden["streaming"]["answers"], indent=1, sort_keys=True))
     for case, entry in golden["serve"]["answers"].items():
         print(case, [(e.get("seed"), e.get("size", e.get("best_size"))) for e in entry])
     for name, entry in golden["lm"]["answers"].items():

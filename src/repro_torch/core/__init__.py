@@ -1,8 +1,8 @@
 """The port's core: the front door (api.py) over the peel engine
 (engine.py), the §5.1 Count-Sketch backend (countsketch.py), the turnstile
 runtime (turnstile.py), the local substrate's exploration (local.py), the
-cache of built kernels (progcache.py) and the numpy baselines (exact.py,
-charikar.py).  The names match ``repro.core``'s for every ported part.
+semi-streaming driver (streaming.py), the cache of built kernels
+(progcache.py) and the numpy baselines (exact.py, charikar.py).  The names match ``repro.core``'s for every ported part.
 
     from repro_torch.core import Problem, solve, solve_batch
     res = solve(edges, Problem.undirected(eps=0.5, backend="pallas"))
@@ -10,6 +10,7 @@ charikar.py).  The names match ``repro.core``'s for every ported part.
     res = solve(edges, Problem.directed())           # the c grid
     sweep = solve_batch(edges, Problem.undirected(), eps=[0.25, 0.5, 1.0])
     res = solve(edges, Problem(substrate="local"), seed=17)
+    res = solve(edges, Problem(substrate="streaming"), checkpoint_dir="ck")
 """
 
 from repro_torch.core.api import (
@@ -61,6 +62,11 @@ from repro_torch.core.peel_directed import (
     densest_subgraph_directed,
 )
 from repro_torch.core.peel_topk import densest_subgraph_at_least_k
+from repro_torch.core.streaming import (
+    StreamingDensest,
+    chunked_from_arrays,
+    chunked_from_memmap,
+)
 from repro_torch.core.turnstile import TurnstileDensest, TurnstileSketch
 
 __all__ = [
@@ -77,11 +83,14 @@ __all__ = [
     "Provenance",
     "SketchBackend",
     "Solver",
+    "StreamingDensest",
     "TurnstileDensest",
     "TurnstileSketch",
     "UndirectedThreshold",
     "c_grid",
     "charikar_greedy",
+    "chunked_from_arrays",
+    "chunked_from_memmap",
     "default_solver",
     "densest_directed_brute",
     "densest_directed_search",

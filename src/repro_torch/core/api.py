@@ -20,12 +20,16 @@ sweeps as one peel loop with a lane axis.  Cells of this slice:
                              the host, then a jit solve of the padded
                              candidate subgraph on the graph's device
     compaction off | geometric | twophase  (Solver._run_compacted ladder)
+               streaming  -> core/streaming.py: the semi-streaming driver,
+                             edges chunked from the host, O(n) node state
+                             on the graph's device (``checkpoint_dir``/
+                             ``resume`` of solve())
     stream_mode turnstile -> core/turnstile.py: the ℓ0 sketch (kernels/l0_sampler)
                              and a peel of its recovered sample
 
-The mesh and streaming substrates resolve and validate exactly as in the
-reference, then raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.  The port keeps no program cache (PyTorch runs eagerly), so
+The mesh substrate resolves and validates exactly as in the reference,
+then raises ``NotImplementedError`` naming the ROADMAP item that ports
+it.  The port keeps no program cache (PyTorch runs eagerly), so
 ``Provenance.cache_hit`` is always False.  What a fresh process pays for
 instead is building the kernels: ``Solver(cache_dir=...)`` (or
 ``Problem.cache_dir``) points the kernels its solves load first at a
@@ -110,6 +114,10 @@ class Problem:
     * ``stream_mode``/``sample_edges`` — ``'turnstile'`` solves through the
       ℓ0-sketch runtime (core/turnstile.py), ``sketch_seed`` seeding its
       hashes; the sample peel runs ``backend`` exact or pallas.
+    * ``stream_chunk``/``stream_workers``/``stream_prefetch``/``spill_dir``/
+      ``residency_cap_edges`` — the streaming substrate's chunk size,
+      worker pool, pipeline window, disk spill and host residency bound
+      (core/streaming.py).
 
     The remaining fields belong to cells not ported yet; they are validated
     as in the reference.
@@ -301,13 +309,10 @@ class Problem:
 
 def _require_ported(prob: Problem) -> None:
     """Raises for a resolved cell this slice of the port does not run."""
-    missing = None
-    if prob.substrate == "streaming":
-        missing = "substrate='streaming' (ROADMAP Queue 1 item 5)"
-    elif prob.substrate == "mesh":
-        missing = "substrate='mesh' (ROADMAP Queue 1 item 6)"
-    if missing is not None:
-        raise NotImplementedError(f"{missing} is not ported to PyTorch yet")
+    if prob.substrate == "mesh":
+        raise NotImplementedError(
+            "substrate='mesh' (ROADMAP Queue 1 item 6) is not ported to PyTorch yet"
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -551,7 +556,13 @@ class Solver:
             yield
 
     def solve(
-        self, graph: EdgeList, problem: Problem, *, seed: Optional[int] = None
+        self,
+        graph: EdgeList,
+        problem: Problem,
+        *,
+        checkpoint_dir: Optional[str] = None,
+        resume: bool = False,
+        seed: Optional[int] = None,
     ) -> DenseSubgraphResult:
         """Runs one Problem on one graph, on ``graph.device``::
 
@@ -561,13 +572,18 @@ class Solver:
             res = Solver().solve(edges, Problem.directed())  # the c grid
             res.extras["best_c"], res.t_nodes()
             res = Solver().solve(edges, Problem(substrate="local"), seed=17)
+            res = Solver().solve(edges, Problem(substrate="streaming"),
+                                 checkpoint_dir="ck", resume=True)
 
-        ``seed`` is required by, and only by, ``substrate='local'``: the
-        node whose dense neighborhood is wanted.
+        ``checkpoint_dir``/``resume`` apply to, and only to,
+        ``substrate='streaming'``; ``seed`` is required by, and only by,
+        ``substrate='local'``: the node whose dense neighborhood is wanted.
         """
         if not isinstance(graph, EdgeList):
             raise TypeError(f"solve() takes an EdgeList graph, got {type(graph).__name__}")
         prob = problem.resolve(graph.n_nodes)
+        if prob.substrate != "streaming" and (checkpoint_dir is not None or resume):
+            raise ValueError("checkpoint_dir/resume only apply to substrate='streaming'")
         with self.kernel_cache(prob):
             if prob.substrate == "local":
                 return self._solve_local(graph, prob, seed)
@@ -576,6 +592,8 @@ class Solver:
                     "seed= is the substrate='local' per-seed query knob; "
                     f"substrate={prob.substrate!r} solves the whole graph"
                 )
+            if prob.substrate == "streaming":
+                return self._solve_streaming(graph, prob, checkpoint_dir, resume)
             return self._solve(graph, prob)
 
     def _solve(self, graph: EdgeList, prob: Problem) -> DenseSubgraphResult:
@@ -852,6 +870,61 @@ class Solver:
         }
         return self._wrap(out, prob, graph.n_nodes, sub.provenance.max_passes, extras=extras)
 
+    def _solve_streaming(
+        self, graph: EdgeList, prob: Problem, checkpoint_dir: Optional[str], resume: bool
+    ) -> DenseSubgraphResult:
+        """Semi-streaming substrate (the reference's ``_solve_streaming``):
+        the graph's real edges come to the host once and stream from there
+        in ``stream_chunk`` chunks through
+        :class:`~repro_torch.core.streaming.StreamingDensest`, its node
+        state on the graph's device.  ``extras['streaming']`` reports the
+        pipeline's residency and straggler/compaction counters; the
+        history's middle column is the alive edge count, as the
+        reference's."""
+        from repro_torch.core.streaming import StreamingDensest, chunked_from_arrays
+
+        mask = hostsync.fetch(graph.mask)
+        src, dst, w = (hostsync.fetch(a)[mask] for a in (graph.src, graph.dst, graph.weight))
+        drv = StreamingDensest(
+            chunked_from_arrays(src, dst, w, chunk=prob.stream_chunk),
+            n_nodes=graph.n_nodes,
+            eps=prob.eps,
+            checkpoint_dir=checkpoint_dir,
+            n_workers=prob.stream_workers,
+            prefetch=prob.stream_prefetch,
+            spill_dir=prob.spill_dir,
+            residency_cap_edges=prob.residency_cap_edges,
+            compaction=prob.compaction,  # resolved: 'off' or 'geometric'
+            device=graph.device,
+        )
+        st = drv.run(max_passes=prob.max_passes, resume=resume)
+        extras = {
+            "streaming": {
+                "peak_resident_chunks": drv.peak_resident_chunks,
+                "peak_resident_edges": drv.peak_resident_edges,
+                "speculative_reissues": drv.speculative_reissues,
+                "compactions": drv.compactions,
+                "spill_rungs": drv.spill_rungs,
+            }
+        }
+        dev = graph.device
+        hist = np.asarray(st.history, np.float64).reshape(-1, 3)
+        best_alive = torch.from_numpy(st.best_alive).to(dev)
+        out = PeelOutcome(
+            best_alive=best_alive,
+            best_t=torch.zeros(0, dtype=torch.bool, device=dev),
+            best_density=torch.tensor(st.best_rho, dtype=torch.float32, device=dev),
+            best_size=best_alive.sum(dtype=torch.int32),
+            passes=int(st.pass_idx),
+            alive=torch.from_numpy(st.alive).to(dev),
+            t_alive=torch.zeros(0, dtype=torch.bool, device=dev),
+            history_n=torch.from_numpy(hist[:, 0].astype(np.int32)).to(dev),
+            history_m=torch.from_numpy(hist[:, 1].astype(np.float32)).to(dev),
+            history_rho=torch.from_numpy(hist[:, 2].astype(np.float32)).to(dev),
+        )
+        mp = prob.resolved_max_passes(graph.n_nodes)
+        return self._wrap(out, prob, graph.n_nodes, mp, extras=extras)
+
     def _solve_turnstile(self, graph: EdgeList, prob: Problem) -> DenseSubgraphResult:
         """One-shot turnstile solve, as the reference lowers
         ``Problem(stream_mode='turnstile')``: a
@@ -1007,7 +1080,8 @@ default_solver = Solver()
 
 
 def solve(graph: EdgeList, problem: Problem, **kw) -> DenseSubgraphResult:
-    """Module-level :meth:`Solver.solve` (``seed=`` for ``substrate='local'``)."""
+    """Module-level :meth:`Solver.solve` (``seed=`` for ``substrate='local'``,
+    ``checkpoint_dir=``/``resume=`` for ``substrate='streaming'``)."""
     return default_solver.solve(graph, problem, **kw)
 
 

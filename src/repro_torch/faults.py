@@ -3,17 +3,18 @@ copied: that module imports no JAX, but the port imports nothing of the
 JAX package).
 
 Instrumented sites call :func:`fire` with a stable site name and, where it
-matters, a per-item key.  In the port the turnstile decode fires
-(``turnstile.decode``, keyed by the level, in ``core/turnstile.py``), the
-cache of built kernels (``progcache.load``/``progcache.store``, keyed by
-the entry path, in ``core/progcache.py``) and the query engine
-(``serve.solve``, keyed by the bucket or the fallback tag, in
-``serve/densest.py``); the streaming and spill sites of
-:data:`KNOWN_SITES` belong to runtimes not ported yet, and the tuple stays
-the reference's so a plan written for one package names the same sites in
-the other.  With no plan
-installed the hook is a module-global ``None`` check: no cost and no
-change of behavior.
+matters, a per-item key.  In the port the streaming driver fires
+(``streaming.chunk``, keyed by the chunk index, and the checkpoint sites,
+in ``core/streaming.py``), the spill ladder's publish
+(``edgelist.spill_publish``, in ``graph/edgelist.py``), the turnstile
+decode (``turnstile.decode``, keyed by the level, in
+``core/turnstile.py``), the cache of built kernels
+(``progcache.load``/``progcache.store``, keyed by the entry path, in
+``core/progcache.py``) and the query engine (``serve.solve``, keyed by the
+bucket or the fallback tag, in ``serve/densest.py``).  :data:`KNOWN_SITES`
+is the reference's tuple, so a plan written for one package names the same
+sites in the other.  With no plan installed the hook is a module-global
+``None`` check: no cost and no change of behavior.
 
 With a :class:`FaultPlan` installed, each ``fire`` consults the plan's
 rules and may inject latency (a real sleep) and/or raise

@@ -1,14 +1,19 @@
 from repro_torch.graph.edgelist import (
     EdgeList,
+    EdgeSpillWriter,
     apply_updates,
     dedup_edges,
     from_numpy,
     from_reference,
+    open_edge_spill,
+    open_edges_memmap,
     resolve_device,
+    save_edges_memmap,
     to_csr,
 )
 
 __all__ = [
-    "EdgeList", "apply_updates", "dedup_edges", "from_numpy", "from_reference",
-    "resolve_device", "to_csr",
+    "EdgeList", "EdgeSpillWriter", "apply_updates", "dedup_edges", "from_numpy",
+    "from_reference", "open_edge_spill", "open_edges_memmap", "resolve_device",
+    "save_edges_memmap", "to_csr",
 ]

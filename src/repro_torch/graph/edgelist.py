@@ -3,15 +3,26 @@
 Flat ``src``/``dst``/``weight`` tensors with an explicit padding ``mask``,
 all on one explicit device.  ``n_nodes`` and ``directed`` are plain Python
 values.
+
+Also the streaming substrate's out-of-core edge stores, host numpy in the
+reference's on-disk formats (either package opens what the other wrote):
+``save_edges_memmap``/``open_edges_memmap`` and the spill ladder's
+``EdgeSpillWriter``/``open_edge_spill``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import shutil
 from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from repro_torch import faults
+from repro_torch.ioutil import atomic_write_file
 
 Device = Union[str, torch.device, None]
 
@@ -226,6 +237,131 @@ def dedup_edges(
     key.sort()
     key = key[np.diff(key, prepend=-1) != 0]  # ids are >= 0: the first is kept
     return (key // base).astype(np.int32), (key % base).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Out-of-core edge stores (the streaming substrate's disk-resident graphs)
+# ---------------------------------------------------------------------------
+
+_STORE_ARRAYS = ("src", "dst", "weight")
+
+
+def save_edges_memmap(
+    store_dir: str,
+    src: np.ndarray,
+    dst: np.ndarray,
+    weight: Optional[np.ndarray] = None,
+) -> str:
+    """Writes an on-disk edge store: ``src.npy``/``dst.npy``/``weight.npy``
+    through ``np.lib.format.open_memmap`` (self-describing dtype and shape,
+    no manifest).  Pair with
+    :func:`repro_torch.core.streaming.chunked_from_memmap` for a chunk
+    stream whose edges never enter host RAM whole."""
+    os.makedirs(store_dir, exist_ok=True)
+    if weight is None:
+        weight = np.ones(len(src), np.float32)
+    arrays = (np.asarray(src, np.int32), np.asarray(dst, np.int32), np.asarray(weight))
+    for name, arr in zip(_STORE_ARRAYS, arrays):
+        mm = np.lib.format.open_memmap(
+            os.path.join(store_dir, f"{name}.npy"), mode="w+", dtype=arr.dtype,
+            shape=arr.shape,
+        )
+        mm[:] = arr
+        mm.flush()
+        del mm
+    return store_dir
+
+
+def open_edges_memmap(store_dir: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Read-mode memmaps ``(src, dst, weight)`` of an edge store written by
+    :func:`save_edges_memmap`: slicing reads only the touched pages."""
+    return tuple(
+        np.load(os.path.join(store_dir, f"{name}.npy"), mmap_mode="r")
+        for name in _STORE_ARRAYS
+    )
+
+
+class EdgeSpillWriter:
+    """Append-only on-disk edge store with an atomic manifest.
+
+    The streaming ladder spills a rebuilt survivor stream through this:
+    raw ``src.bin``/``dst.bin``/``w.bin`` files are appended chunk by chunk
+    (O(chunk) host memory), then :meth:`finalize` publishes
+    ``manifest.json`` atomically.  A crash mid-spill leaves no manifest,
+    and resume ignores the partial spill."""
+
+    def __init__(self, spill_dir: str, w_dtype):
+        os.makedirs(spill_dir, exist_ok=True)
+        self.dir = spill_dir
+        self.w_dtype = np.dtype(w_dtype)
+        self._files = {
+            name: open(os.path.join(spill_dir, f"{name}.bin"), "wb")
+            for name in ("src", "dst", "w")
+        }
+        self.n_slots = 0
+
+    def append(self, src: np.ndarray, dst: np.ndarray, w: np.ndarray) -> None:
+        if not (len(src) == len(dst) == len(w)):
+            raise ValueError("spill chunk arrays must have equal length")
+        np.asarray(src, np.int32).tofile(self._files["src"])
+        np.asarray(dst, np.int32).tofile(self._files["dst"])
+        np.asarray(w, self.w_dtype).tofile(self._files["w"])
+        self.n_slots += len(src)
+
+    def close(self) -> None:
+        for f in self._files.values():
+            if not f.closed:
+                f.close()
+
+    def abort(self) -> None:
+        """Failure path: close the files and drop the partial spill
+        directory (nothing was published, so nothing resumes from it)."""
+        self.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+    def finalize(self, **meta) -> dict:
+        """Flushes and fsyncs the data files, then publishes the manifest
+        atomically (``meta`` keys ride along, then ``n_slots`` and
+        ``w_dtype`` as ``np.dtype.str``).  Only after this returns does
+        :func:`open_edge_spill` see the spill."""
+        # Chaos hook: a publish failure must leave no manifest (the caller
+        # aborts the rung; resume ignores unfinalized spills).
+        faults.fire("edgelist.spill_publish")
+        for f in self._files.values():
+            f.flush()
+            os.fsync(f.fileno())
+            f.close()
+        manifest = dict(meta)
+        manifest["n_slots"] = int(self.n_slots)
+        manifest["w_dtype"] = self.w_dtype.str
+        atomic_write_file(
+            os.path.join(self.dir, "manifest.json"),
+            lambda f: json.dump(manifest, f),
+            mode="w",
+            suffix=".json.tmp",
+        )
+        return manifest
+
+
+def open_edge_spill(spill_dir: str):
+    """Opens a finalized spill: ``(src, dst, w, manifest)`` with the arrays
+    as read-mode memmaps, or None when there is no manifest (unfinalized or
+    absent, e.g. a spill interrupted mid-write)."""
+    man_path = os.path.join(spill_dir, "manifest.json")
+    if not os.path.exists(man_path):
+        return None
+    with open(man_path) as f:
+        manifest = json.load(f)
+    n = int(manifest["n_slots"])
+
+    def mm(name, dtype):
+        if n == 0:
+            return np.zeros(0, dtype)
+        return np.memmap(os.path.join(spill_dir, f"{name}.bin"), dtype=dtype, mode="r",
+                         shape=(n,))
+
+    return (mm("src", np.int32), mm("dst", np.int32),
+            mm("w", np.dtype(manifest["w_dtype"])), manifest)
 
 
 def to_csr(edges: EdgeList, return_weights: bool = False):

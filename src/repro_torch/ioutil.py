@@ -2,7 +2,9 @@
 copied: the port imports nothing of the JAX package).
 
 The crash-safe file publish behind the persistent cache of built kernels
-(``core/progcache.py``).
+(``core/progcache.py``), the streaming driver's checkpoints
+(``core/streaming.py``) and the spill ladder's manifests
+(``graph/edgelist.py``).
 """
 
 from __future__ import annotations

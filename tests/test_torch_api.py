@@ -82,15 +82,28 @@ def test_post_init_rejects_like_reference(kw):
         api.Problem(**kw)
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [dict(substrate="streaming"), dict(substrate="streaming", compaction="off"),
-     dict(substrate="mesh")],
-)
+@pytest.mark.parametrize("kw", [dict(substrate="mesh")])
 def test_unported_cells_raise_not_implemented(kw):
     edges = _port(erdos_renyi(50, avg_deg=4, seed=0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.solve(edges, api.Problem(**kw))
+
+
+@pytest.mark.parametrize(
+    "kw", [dict(substrate="streaming"), dict(substrate="streaming", compaction="off")],
+)
+def test_streaming_cells_solve_like_reference(kw):
+    """The two streaming cells that used to raise here solve as the
+    reference does, bitwise (the full matrix is tests/test_torch_streaming.py)."""
+    edges = erdos_renyi(50, avg_deg=4, seed=0)
+    ref = ref_api.Solver().solve(edges, ref_api.Problem(**kw))
+    got = api.solve(_port(edges), api.Problem(**kw))
+    for field in ("best_alive", "best_t", "best_density", "best_size", "alive", "t_alive",
+                  "history_n", "history_m", "history_rho"):
+        assert _bits(getattr(got, field)) == _bits(getattr(ref, field)), field
+    assert got.passes == int(ref.passes)
+    assert set(got.extras["streaming"]) == set(ref.extras["streaming"])
+    assert dataclasses.asdict(got.provenance) == dataclasses.asdict(ref.provenance)
 
 
 @pytest.mark.parametrize(

@@ -808,3 +808,81 @@ def test_warm_build_directory_builds_nothing_in_a_fresh_process(cuda, tmp_path):
     out = subprocess.run([sys.executable, "-c", child], capture_output=True, text=True,
                          env=env, timeout=600)
     assert out.returncode == 0 and "WARM_OK" in out.stdout, out.stdout + out.stderr
+
+
+# -- the semi-streaming substrate: node state on the card ---------------------
+
+
+def _stream_case(seed=1):
+    edges, _ = generators.planted_dense_subgraph(3000, 6, 80, 0.5, seed=seed, device="cpu")
+    m = edges.mask.numpy()
+    return edges.n_nodes, tuple(a.numpy()[m] for a in (edges.src, edges.dst, edges.weight))
+
+
+def _same_stream_state(got, want):
+    assert got.best_rho == want.best_rho and got.pass_idx == want.pass_idx
+    assert np.array_equal(got.best_alive, want.best_alive)
+    assert np.array_equal(got.alive, want.alive)
+    assert got.history == want.history
+
+
+@pytest.mark.parametrize("compaction", ["off", "geometric"])
+def test_streaming_driver_on_card_equals_cpu(cuda, compaction):
+    from repro_torch.core.streaming import StreamingDensest, chunked_from_arrays
+
+    n, (src, dst, w) = _stream_case()
+    runs = []
+    for device in ("cuda", "cpu"):
+        drv = StreamingDensest(chunked_from_arrays(src, dst, w, 1000), n, eps=0.3,
+                               compaction=compaction, device=device)
+        runs.append((drv.run(resume=False), drv))
+    _same_stream_state(runs[0][0], runs[1][0])
+    assert runs[0][1].bytes_to_device >= 12 * len(src) and runs[1][1].bytes_to_device == 0
+    res = solve(generators.planted_dense_subgraph(3000, 6, 80, 0.5, seed=1, device=cuda)[0],
+                Problem.undirected(eps=0.3, substrate="streaming", compaction=compaction,
+                                   stream_chunk=1000))
+    assert res.best_alive.device.type == "cuda"
+    assert np.array_equal(res.best_alive.cpu().numpy(), runs[1][0].best_alive)
+
+
+def test_streaming_stress_on_card_is_bitwise_repeatable(cuda):
+    """8 workers, a 2-chunk window, 97-edge chunks, speculation on (half the
+    stream duplicated): 20 runs, each equal to the CPU driver, bit for bit."""
+    from repro_torch.core.streaming import StreamingDensest, chunked_from_arrays
+
+    n, (src, dst, w) = _stream_case(seed=2)
+    kw = dict(n_nodes=n, eps=0.3, n_workers=8, prefetch=2, speculative=True,
+              speculate_tail_frac=0.5)
+    want = StreamingDensest(chunked_from_arrays(src, dst, w, 97), device="cpu",
+                            **kw).run(resume=False)
+    for _ in range(20):
+        got = StreamingDensest(chunked_from_arrays(src, dst, w, 97), device=cuda,
+                               **kw).run(resume=False)
+        _same_stream_state(got, want)
+
+
+def test_streaming_failing_chunk_on_card_keeps_checkpoint(cuda, tmp_path):
+    """A malformed chunk of pass 3 (an object weight array) re-raises its
+    own TypeError after its one retry, and the checkpoint of pass 2
+    survives and resumes to the CPU answer."""
+    from repro_torch.core.streaming import StreamingDensest, chunked_from_arrays
+
+    n, (src, dst, w) = _stream_case()
+    base = chunked_from_arrays(src, dst, w, 500)
+    calls = {"n": 0}
+
+    def poisoned_third_pass():
+        calls["n"] += 1
+        for i, (s, d, ww) in enumerate(base()):
+            bad = calls["n"] == 3 and i == 2
+            yield s, d, (np.array(["boom"] * len(ww), object) if bad else ww)
+
+    ck = str(tmp_path / "ck")
+    drv = StreamingDensest(poisoned_third_pass, n, eps=0.3, checkpoint_dir=ck, device=cuda)
+    with pytest.raises(TypeError):
+        drv.run(resume=False)
+    st = drv._load()
+    assert st is not None and st.pass_idx == 2
+    want = StreamingDensest(base, n, eps=0.3, device="cpu").run(resume=False)
+    got = StreamingDensest(base, n, eps=0.3, checkpoint_dir=ck, device=cuda).run(resume=True)
+    _same_stream_state(got, want)

@@ -1,6 +1,7 @@
 """The JAX golden fixture for the card stays true: every entry of
 tests/fixtures/torch_port/golden.json (cells exact, pallas, sketch and
-turnstile, on two graphs; Algorithms 2 and 3 and an eps sweep; per-seed
+turnstile, on two graphs; Algorithms 2 and 3 and an eps sweep; the
+semi-streaming substrate; per-seed
 serving in both extraction modes and the local front door; the REDUCED
 llama3.2-3b's prefill logits, greedy tokens and margins) is recomputed with ``repro`` here, and the port's CPU
 answers meet it too (``chip_smoke.py`` holds the port's CUDA answers
@@ -58,6 +59,21 @@ def test_objective_golden_matches_reference(case):
 @pytest.mark.parametrize("case", golden.OBJECTIVE_CASES)
 def test_port_cpu_meets_objective_golden(case):
     assert golden.port_objective_entry(case, "cpu") == _load()["objectives"]["answers"][case]
+
+
+# -- the streaming entries (the semi-streaming substrate) ---------------------
+
+
+@pytest.mark.parametrize("case", sorted(golden.STREAM_CASES))
+def test_stream_golden_matches_reference(case):
+    fixture = _load()["streaming"]
+    assert fixture["cases"][case] == golden.STREAM_CASES[case]
+    assert fixture["answers"][case] == golden.reference_stream_entry(case)
+
+
+@pytest.mark.parametrize("case", sorted(golden.STREAM_CASES))
+def test_port_cpu_meets_stream_golden(case):
+    assert golden.port_stream_entry(case, "cpu") == _load()["streaming"]["answers"][case]
 
 
 # -- the serve entries (the query engine in both modes, the local front door) --

@@ -53,7 +53,7 @@ PORT_MODULES = (
     "repro_torch.train.step", "repro_torch.launch.serve",
     "repro_torch.ioutil", "repro_torch.core.local", "repro_torch.core.progcache",
     "repro_torch.serve", "repro_torch.serve.densest", "repro_torch.serve.resilience",
-    "repro_torch.serve.turnstile",
+    "repro_torch.serve.turnstile", "repro_torch.core.streaming", "repro_torch.graph.edgelist",
 )
 
 
