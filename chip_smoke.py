@@ -5,7 +5,7 @@
 
 Builds the port's four CUDA kernels from the sources in this checkout (one
 ``nvcc`` each, all started together), holds each against its plain PyTorch
-version on the card, then drives the port's seven paths through the
+version on the card, then drives the port's eight paths through the
 entry points a user calls:
 
 * Algorithm 1 on the geometric ladder, ``solve(edges,
@@ -37,6 +37,13 @@ entry points a user calls:
   node state on the card (no kernel of K1-K4; ``index_add_``), against the
   in-memory exact ladder, with the spill ladder, a kill and resume, and a
   seeded fault storm; the front door on flickr_sm against the CPU driver;
+* the §5.2 mesh substrate on a one-rank NCCL mesh (``make_mesh``):
+  livejournal_md on the collective ladder against the in-memory jit
+  ladder and with ``backend='sketch'`` (K2 once a pass on the rank's
+  shard) against the jit sketch solve, flickr_sm with compaction off,
+  twophase and the bf16 wire against the same on a one-rank gloo mesh on
+  the CPU, and the directed 976k graph at c=4 against its jit solve, each
+  run's collectives counted;
 * the LM path at the full width of llama3.2-3b (28 layers, random weights
   from a seeded ``torch.Generator``): ``prefill`` of an 8,192-token prompt
   with ``attn_impl='pallas'`` (K4, flash attention, once per layer)
@@ -889,7 +896,7 @@ def phase_livejournal(lj) -> dict:
         peak_above_graph_mb=peak_e, rho=float(exact.best_density),
         size=int(exact.best_size),
         sketch_over_exact_density=float(res.best_density) / float(exact.best_density))
-    return {"launches": launches}
+    return {"launches": launches}, res
 
 
 # -- K3 and the turnstile path (flickr_sm churn) ------------------------------
@@ -1709,6 +1716,145 @@ def phase_stream_flickr(flickr, flickr_cpu) -> None:
         log("golden", stream_case=case, equal="JAX golden")
 
 
+# -- the §5.2 mesh substrate, NCCL at world size 1 ----------------------------
+
+# flickr_sm's twophase cell compacts after this many passes (it peels in ~5).
+MESH_TWOPHASE_PASSES = 2
+
+
+def mesh_inputs():
+    """A one-rank card mesh (NCCL, bound to the card) and a one-rank CPU
+    mesh (gloo) in this process: the world ``make_mesh`` starts runs
+    ``cpu:gloo,cuda:nccl`` over an in-memory store."""
+    from repro_torch.core.mapreduce import make_mesh
+
+    mesh = make_mesh((1,), ("data",))
+    cpu_mesh = make_mesh((1,), ("data",), device="cpu")
+    log("mesh.init", card=str(mesh), cpu=str(cpu_mesh))
+    return mesh, cpu_mesh
+
+
+def _mesh_run(fn):
+    """``_peak_run(fn)`` with the collectives counted from 0: (result, wall
+    ms, host syncs, peak MB, collectives)."""
+    from repro_torch import collectives
+
+    collectives.reset()
+    out, wall, syncs, peak = _peak_run(fn)
+    coll = {"all_reduce": collectives.all_reduce.count,
+            "all_reduce_mb": collectives.all_reduce.bytes / 1e6,
+            "all_gather": collectives.all_gather.count,
+            "all_gather_mb": collectives.all_gather.bytes / 1e6}
+    return out, wall, syncs, peak, coll
+
+
+def _ladder_reduces(lad) -> int:
+    """All-reduces of a collective ladder: one at entry, one a pass, one
+    more a pass for the trigger outside the last rung."""
+    segs = lad["segments"]
+    return 1 + sum(g["passes"] for g in segs) + sum(g["passes"] for g in segs[:-1])
+
+
+def phase_mesh_livejournal(lj, ladder, sketch, mesh) -> dict:
+    """``mesh.livejournal``: livejournal_md on the one-rank NCCL mesh.
+    ``Problem.undirected(substrate='mesh')`` resolves compaction 'auto' to
+    the collective ladder; it equals the in-memory jit ladder field for
+    field (its rung schedule differs).  ``backend='sketch'`` builds its
+    counters with K2 once a pass on the rank's shard and equals the
+    ``livejournal`` phase's jit sketch solve field for field.  Each run's
+    collectives are counted: one all_reduce a pass (19.36 MB of [deg |
+    total] for the exact mesh, (5·8192 + 1)·4 B for the sketch), one more
+    for the ladder's trigger, four gathers a rung."""
+    import torch
+
+    from repro_torch.core import Problem, solve
+    from repro_torch.kernels.count_sketch import ops as cs_ops
+
+    prob = Problem.undirected(eps=EPS, substrate="mesh", track_history=True)
+    res, wall, syncs, peak, coll = _mesh_run(lambda: solve(lj, prob, mesh=mesh))
+    lad = res.extras["compaction"]
+    if res.provenance.compaction != "geometric" or not lad["single_program"]:
+        raise AssertionError(f"mesh auto resolved to {res.provenance}, {lad}")
+    _same_outcome("livejournal mesh ladder vs jit ladder", res, ladder)
+    if coll["all_reduce"] != _ladder_reduces(lad) or coll["all_gather"] != 4 * (
+            len(lad["segments"]) - 1):
+        raise AssertionError(f"mesh ladder collectives {coll} for {lad['segments']}")
+    log("mesh.livejournal", cell="exact, collective ladder", wall_ms=wall, passes=res.passes,
+        host_syncs=syncs, peak_above_graph_mb=peak,
+        peak_device_mb=torch.cuda.max_memory_allocated() / 2**20, **coll,
+        reduce_mb_per_pass=(lj.n_nodes + 1) * 4 / 1e6, schedule=lad["schedule"],
+        rung_passes=[g["passes"] for g in lad["segments"]],
+        jit_ladder_segments=len(ladder.extras["compaction"]["segments"]),
+        equal="mesh ladder == jit ladder bitwise (sets, density, passes, history)")
+    # The first mesh solve also sets up the edge group's NCCL communicator.
+    _, warm_wall, _, _ = _peak_run(lambda: solve(lj, prob, mesh=mesh))
+    _, jit_wall, jit_syncs, jit_peak = _peak_run(lambda: solve(lj, Problem.undirected(
+        eps=EPS, track_history=True)))
+    log("mesh.livejournal", cell="exact, collective ladder, again", wall_ms=warm_wall)
+    log("mesh.livejournal", cell="jit ladder (comparator)", wall_ms=jit_wall,
+        host_syncs=jit_syncs, peak_above_graph_mb=jit_peak)
+    phase_profile("livejournal_mesh_ladder", lambda: solve(lj, prob, mesh=mesh))
+    phase_profile("livejournal_jit_ladder", lambda: solve(lj, Problem.undirected(eps=EPS)))
+
+    prob_s = Problem.undirected(eps=EPS, substrate="mesh", backend="sketch", track_history=True)
+    cs_ops.count_sketch_update.launches = 0
+    res_s, wall_s, syncs_s, peak_s, coll_s = _mesh_run(lambda: solve(lj, prob_s, mesh=mesh))
+    launches = cs_ops.count_sketch_update.launches
+    if launches != res_s.passes:
+        raise AssertionError(f"mesh sketch: K2 launches {launches} != passes {res_s.passes}")
+    if coll_s["all_reduce"] != res_s.passes or coll_s["all_gather"] != 0:
+        raise AssertionError(f"mesh sketch collectives {coll_s}")
+    _same_outcome("livejournal mesh sketch vs jit sketch", res_s, sketch)
+    log("mesh.livejournal", cell="sketch (K2)", wall_ms=wall_s, passes=res_s.passes,
+        host_syncs=syncs_s, k2_launches=launches, peak_above_graph_mb=peak_s, **coll_s,
+        reduce_kb_per_pass=(prob_s.sketch_tables * prob_s.sketch_buckets + 1) * 4 / 1e3,
+        equal="mesh sketch == jit sketch bitwise (sets, density, passes, history)")
+    phase_profile("livejournal_mesh_sketch", lambda: solve(lj, prob_s, mesh=mesh))
+    return {"mesh.livejournal": launches}
+
+
+def phase_mesh_flickr(flickr, flickr_cpu, mesh, cpu_mesh) -> None:
+    """``mesh.flickr``: flickr_sm on the card mesh (NCCL) == on the CPU mesh
+    (gloo), world size 1, for compaction off, twophase and the bf16 wire."""
+    from repro_torch.core import Problem, solve
+
+    cells = {
+        "off": dict(compaction="off"),
+        "twophase": dict(compaction="twophase", twophase_passes=MESH_TWOPHASE_PASSES),
+        "off.bf16": dict(compaction="off", wire_dtype="bf16"),
+    }
+    for name, kw in cells.items():
+        prob = Problem.undirected(eps=EPS, substrate="mesh", track_history=True, **kw)
+        card, wall, syncs, peak, coll = _mesh_run(lambda: solve(flickr, prob, mesh=mesh))
+        t0 = time.perf_counter()
+        cpu = solve(flickr_cpu, prob, mesh=cpu_mesh)
+        cpu_s = time.perf_counter() - t0
+        _same_outcome(f"flickr mesh {name} card vs CPU", card, cpu)
+        if coll["all_reduce"] != card.passes or coll["all_gather"] != 0:
+            raise AssertionError(f"flickr mesh {name} collectives {coll}")
+        log("mesh.flickr", cell=name, wall_ms=wall, cpu_wall_s=cpu_s, passes=card.passes,
+            host_syncs=syncs, peak_above_graph_mb=peak, **coll,
+            equal="card (NCCL) == CPU (gloo) bitwise (sets, density, passes, history)")
+
+
+def phase_mesh_directed(dg, mesh) -> None:
+    """``mesh.directed``: the directed 976k planted graph at c=4 on the
+    card mesh (the collective ladder) == its jit solve (the host ladder)."""
+    from repro_torch.core import Problem, solve
+
+    kw = dict(c=DIRECTED_C, eps=EPS, track_history=True)
+    want, wall_j, _, _ = _peak_run(lambda: solve(dg, Problem.directed(**kw)))
+    got, wall, syncs, peak, coll = _mesh_run(lambda: solve(
+        dg, Problem.directed(substrate="mesh", **kw), mesh=mesh))
+    _same_outcome("directed mesh ladder vs jit ladder", got, want)
+    lad = got.extras["compaction"]
+    if coll["all_reduce"] != _ladder_reduces(lad):
+        raise AssertionError(f"directed mesh collectives {coll} for {lad['segments']}")
+    log("mesh.directed", c=DIRECTED_C, wall_ms=wall, jit_wall_ms=wall_j, passes=got.passes,
+        host_syncs=syncs, peak_above_graph_mb=peak, **coll, schedule=lad["schedule"],
+        equal="mesh ladder == jit ladder bitwise (S, T, density, passes, history)")
+
+
 def _kernel_counters():
     """The four kernels' launch-counting wrappers."""
     from repro_torch.kernels.count_sketch.ops import count_sketch_update
@@ -1802,7 +1948,7 @@ def _block_density(edges, s_ids, t_ids) -> float:
     return int(inside.sum().item()) / math.sqrt(len(s_ids) * len(t_ids))
 
 
-def phase_directed() -> None:
+def phase_directed(mesh) -> None:
     """Algorithm 3 on the planted S->T block at flickr_sm's scale: the
     41-value c grid (delta 2) through the ladder with exact degrees, the
     block recovered (>= 70% of S* and of T*, density >= the block's /
@@ -1848,6 +1994,7 @@ def phase_directed() -> None:
         sweep_best_c=float(grid[best]), grid_best_c=ex["best_c"])
     phase_profile("directed_c_grid", lambda: solve(dg, prob))
     phase_profile("directed_c_sweep", lambda: solve_batch(dg, prob, c=grid))
+    phase_mesh_directed(dg, mesh)
 
 
 def phase_directed_sketch() -> None:
@@ -2323,7 +2470,8 @@ def main() -> int:
     log("livejournal.graph", nodes=lj.n_nodes, edges=lj.n_edges_padded,
         gen_seconds=round(time.perf_counter() - t0, 3))
     k2 = phase_sketch_kernel(lj)
-    k2.update(phase_livejournal(lj))
+    k2_lj, lj_sketch = phase_livejournal(lj)
+    k2.update(k2_lj)
     phase_profile("livejournal_auto_sketch", lambda: solve(lj, Problem.undirected(
         eps=EPS, backend="auto")))
     # Path 6 (its livejournal_md part): per-seed local serving.
@@ -2331,7 +2479,12 @@ def main() -> int:
     # Path 7: the semi-streaming substrate, livejournal_md from a disk
     # memmap with nothing else on the card.
     lj_host, ladder, ladder_peak_mb = stream_inputs(lj)
-    del lj
+    # Path 8: the §5.2 mesh substrate on a one-rank NCCL mesh (K2 on the
+    # sketch cell), against the in-memory ladder and the sketch solve.
+    mesh, cpu_mesh = mesh_inputs()
+    k2["launches_by_path"] = {"livejournal": k2["launches"],
+                              **phase_mesh_livejournal(lj, ladder, lj_sketch, mesh)}
+    del lj, lj_sketch
     torch.cuda.empty_cache()
     phase_stream(lj_host, ladder, ladder_peak_mb, smi)
     del lj_host, ladder
@@ -2350,12 +2503,13 @@ def main() -> int:
     phase_serve(flickr, flickr_cpu, "local")
     phase_serve_resilience(flickr, flickr_cpu)
     phase_stream_flickr(flickr, flickr_cpu)
+    phase_mesh_flickr(flickr, flickr_cpu, mesh, cpu_mesh)
     del flickr_cpu
     phase_build_cache()
     phase_golden_serve()
     del flickr
     torch.cuda.empty_cache()
-    phase_directed()
+    phase_directed(mesh)
     torch.cuda.empty_cache()
     phase_directed_sketch()
     torch.cuda.empty_cache()
@@ -2380,11 +2534,14 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     phase_lm_golden()
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
     log("done", seconds=round(time.perf_counter() - t_start, 3))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in (k1, k2, k3, k4)]}),
-          flush=True)
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern}
+                                  for kern in (k1, k2, k3, k4)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -62,6 +62,19 @@ the geometric ladder on the quickstart graph in 1,000-edge chunks.  A
 record adds the sha256 of the history (int32 ``history_n``, then float32
 ``history_m`` and ``history_rho``) and the ladder's ``compactions``.
 
+The ``mesh`` section holds the §5.2 mesh substrate on an edge-sharded
+mesh of :data:`MESH_DEVICES` devices, ``solve(graph,
+Problem.undirected(eps=0.5, substrate='mesh', track_history=True, ...),
+mesh=mesh)``, each case named ``<graph>.<compaction>[.bf16]``: the
+collective ladder (compaction ``geometric``) and the host ``twophase``
+ladder (one compaction after 2 passes), and the bf16 wire (``wire_dtype='bf16'``) uncompacted.  The JAX
+package computes them in a child process that forces
+:data:`MESH_DEVICES` host devices (``--xla_force_host_platform_device_count``),
+so this process keeps its one device.  A record adds the history's
+sha256 and, for a ladder, its report without ``cache_hit``.  The port
+meets them with :data:`MESH_DEVICES` gloo ranks
+(``tests/test_torch_mapreduce.py``).
+
 The pallas entries come from the reference's tiled-degree kernel K1: the
 quickstart graph through the real ``backend='pallas'`` cell (Pallas in
 interpret mode off-TPU); the 200k graph through K1's jnp oracle
@@ -76,6 +89,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -108,6 +122,12 @@ SERVE_CASES = tuple(f"{kind}.{g}" for kind in ("engine.bfs", "engine.local", "lo
 STREAM_CASES = {
     **{f"{g}.{c}": dict(compaction=c) for g in GRAPHS for c in ("off", "geometric")},
     "quickstart.geometric.chunk1000": dict(compaction="geometric", stream_chunk=1000),
+}
+MESH_DEVICES = 4
+MESH_CASES = {
+    **{f"{g}.geometric": dict(compaction="geometric") for g in GRAPHS},
+    **{f"{g}.twophase": dict(compaction="twophase", twophase_passes=2) for g in GRAPHS},
+    **{f"{g}.off.bf16": dict(compaction="off", wire_dtype="bf16") for g in GRAPHS},
 }
 
 
@@ -353,6 +373,74 @@ def port_stream_entry(case: str, device) -> dict:
     return stream_record(res, host=lambda t: t.cpu().numpy())
 
 
+# -- the mesh entries (the §5.2 mesh substrate) -------------------------------
+
+
+def mesh_problem(case: str, problem_cls):
+    """The case's Problem, from either package's ``Problem`` class."""
+    return problem_cls.undirected(eps=EPS, substrate="mesh", track_history=True,
+                                  **MESH_CASES[case])
+
+
+def mesh_record(res, host=np.asarray) -> dict:
+    """A mesh entry from a result, ``host`` bringing its arrays to numpy."""
+    hist = b"".join(np.ascontiguousarray(host(getattr(res, f)), dt).tobytes() for f, dt in (
+        ("history_n", np.int32), ("history_m", np.float32), ("history_rho", np.float32)))
+    extra = {}
+    if res.extras is not None and "compaction" in res.extras:
+        lad = dict(res.extras["compaction"])
+        lad["segments"] = [{k: v for k, v in seg.items() if k != "cache_hit"}
+                           for seg in lad["segments"]]
+        extra["ladder"] = lad
+    return record(host(res.best_alive), host(res.best_density), host(res.best_size),
+                  res.passes, history_sha256=hashlib.sha256(hist).hexdigest(), **extra)
+
+
+def _reference_mesh_child() -> dict:
+    """In a process with :data:`MESH_DEVICES` host devices: every mesh
+    entry, computed by the JAX package."""
+    import jax
+
+    from repro.core import Problem, solve
+
+    assert len(jax.devices()) == MESH_DEVICES, jax.devices()
+    mesh = jax.make_mesh((MESH_DEVICES,), ("data",))
+    return {case: mesh_record(solve(make_graph(case.split(".")[0]),
+                                    mesh_problem(case, Problem), mesh=mesh))
+            for case in MESH_CASES}
+
+
+def reference_mesh_entries(timeout: float = 900) -> dict:
+    """Every mesh entry, computed by the JAX package in a child process
+    with :data:`MESH_DEVICES` host devices."""
+    env = dict(
+        os.environ, JAX_PLATFORMS="cpu",
+        XLA_FLAGS=f"--xla_force_host_platform_device_count={MESH_DEVICES}",
+        PYTHONPATH=os.pathsep.join([os.path.join(REPO, "src"), os.path.join(REPO, "scripts")]),
+    )
+    code = ("import json, torch_port_golden as g; "
+            "print('MESH_JSON ' + json.dumps(g._reference_mesh_child()))")
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=timeout, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"mesh reference child failed: {proc.stderr[-3000:]}")
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("MESH_JSON ")][-1]
+    return json.loads(line[len("MESH_JSON "):])
+
+
+def port_mesh_entry(case: str, mesh, device) -> dict:
+    """The port's answer for one mesh case on ``mesh``, its graph on
+    ``device`` (every rank calls this with the same case)."""
+    from repro_torch.core import Problem, solve
+    from repro_torch.graph import generators
+
+    gen, kw = GRAPHS[case.split(".")[0]]
+    out = getattr(generators, gen)(**kw, device=device)
+    edges = out[0] if isinstance(out, tuple) else out
+    res = solve(edges, mesh_problem(case, Problem), mesh=mesh)
+    return mesh_record(res, host=lambda t: t.cpu().numpy())
+
+
 # -- the serve entries (per-seed serving and the local front door) ------------
 
 
@@ -586,6 +674,11 @@ def compute() -> dict:
             "cases": STREAM_CASES,
             "answers": {case: reference_stream_entry(case) for case in STREAM_CASES},
         },
+        "mesh": {
+            "devices": MESH_DEVICES,
+            "cases": MESH_CASES,
+            "answers": reference_mesh_entries(),
+        },
         "serve": {
             "problem": SERVE_PROBLEM, "engine": SERVE_ENGINE, "queries": SERVE_QUERIES,
             "front_door": SERVE_FRONT_DOOR,
@@ -611,6 +704,7 @@ def main() -> int:
     print(json.dumps(golden["answers"], indent=1, sort_keys=True))
     print(json.dumps(golden["objectives"]["answers"], indent=1, sort_keys=True))
     print(json.dumps(golden["streaming"]["answers"], indent=1, sort_keys=True))
+    print(json.dumps(golden["mesh"]["answers"], indent=1, sort_keys=True))
     for case, entry in golden["serve"]["answers"].items():
         print(case, [(e.get("seed"), e.get("size", e.get("best_size"))) for e in entry])
     for name, entry in golden["lm"]["answers"].items():

@@ -1,8 +1,9 @@
 """The port's core: the front door (api.py) over the peel engine
 (engine.py), the §5.1 Count-Sketch backend (countsketch.py), the turnstile
 runtime (turnstile.py), the local substrate's exploration (local.py), the
-semi-streaming driver (streaming.py), the cache of built kernels
-(progcache.py) and the numpy baselines (exact.py, charikar.py).  The names match ``repro.core``'s for every ported part.
+semi-streaming driver (streaming.py), the §5.2 mesh substrate
+(mapreduce.py), the cache of built kernels (progcache.py) and the numpy
+baselines (exact.py, charikar.py).  The names match ``repro.core``'s for every ported part.
 
     from repro_torch.core import Problem, solve, solve_batch
     res = solve(edges, Problem.undirected(eps=0.5, backend="pallas"))
@@ -11,6 +12,7 @@ semi-streaming driver (streaming.py), the cache of built kernels
     sweep = solve_batch(edges, Problem.undirected(), eps=[0.25, 0.5, 1.0])
     res = solve(edges, Problem(substrate="local"), seed=17)
     res = solve(edges, Problem(substrate="streaming"), checkpoint_dir="ck")
+    res = solve(edges, Problem(substrate="mesh"), mesh=make_mesh((1,), ("data",)))
 """
 
 from repro_torch.core.api import (
@@ -40,6 +42,7 @@ from repro_torch.core.engine import (
     DirectedST,
     ExactBackend,
     FnBackend,
+    MeshSegmentSumBackend,
     PeelOutcome,
     PeelState,
     UndirectedThreshold,
@@ -53,6 +56,15 @@ from repro_torch.core.exact import (
     densest_directed_brute,
     densest_subgraph_brute,
     densest_subgraph_exact,
+)
+from repro_torch.core.mapreduce import (
+    densest_subgraph_distributed,
+    make_distributed_directed_peel,
+    make_distributed_peel,
+    make_distributed_peel_compacted,
+    make_distributed_peel_ladder,
+    make_mesh,
+    shard_edges,
 )
 from repro_torch.core.peel import densest_subgraph, densest_subgraph_sets
 from repro_torch.core.peel_directed import (
@@ -77,6 +89,7 @@ __all__ = [
     "FnBackend",
     "LocalExploration",
     "LocalExplorer",
+    "MeshSegmentSumBackend",
     "PeelOutcome",
     "PeelState",
     "Problem",
@@ -99,10 +112,16 @@ __all__ = [
     "densest_subgraph_at_least_k",
     "densest_subgraph_brute",
     "densest_subgraph_directed",
+    "densest_subgraph_distributed",
     "densest_subgraph_exact",
     "densest_subgraph_sets",
     "densest_subgraph_sketched",
     "density_of",
+    "make_distributed_directed_peel",
+    "make_distributed_peel",
+    "make_distributed_peel_compacted",
+    "make_distributed_peel_ladder",
+    "make_mesh",
     "make_sketch_params",
     "max_passes_bound",
     "query_degrees",
@@ -110,6 +129,7 @@ __all__ = [
     "run_cell",
     "run_peel",
     "segment_degree_count",
+    "shard_edges",
     "sketch_degrees_from_edges",
     "sketch_endpoint_counters",
     "sketched_degree_fn",

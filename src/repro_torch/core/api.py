@@ -15,6 +15,12 @@ sweeps as one peel loop with a lane axis.  Cells of this slice:
                sketch     -> SketchBackend (§5.1), its counters built by the
                              hand-written Count-Sketch kernel (kernels/count_sketch)
     substrate  jit        -> run_peel's host loop on one device
+               mesh       -> core/mapreduce.py (§5.2): edges sharded over the
+                             ranks of ``solve(..., mesh=)``, node state on
+                             every rank, one all_reduce a pass (the
+                             MeshSegmentSumBackend, or K2's counters for
+                             the sketch); geometric compaction is the
+                             collective-only ladder
                local      -> core/local.py: Andersen's pruned-frontier
                              exploration around ``solve(..., seed=)`` on
                              the host, then a jit solve of the padded
@@ -27,20 +33,20 @@ sweeps as one peel loop with a lane axis.  Cells of this slice:
     stream_mode turnstile -> core/turnstile.py: the ℓ0 sketch (kernels/l0_sampler)
                              and a peel of its recovered sample
 
-The mesh substrate resolves and validates exactly as in the reference,
-then raises ``NotImplementedError`` naming the ROADMAP item that ports
-it.  The port keeps no program cache (PyTorch runs eagerly), so
-``Provenance.cache_hit`` is always False.  What a fresh process pays for
-instead is building the kernels: ``Solver(cache_dir=...)`` (or
-``Problem.cache_dir``) points the kernels its solves load first at a
-persistent cache of built libraries (core/progcache.py), and the Solver
-counts its lookups in ``disk_hits``/``disk_misses``/``disk_store_errors``.
+Every substrate of the reference runs.  The port keeps no program cache
+(PyTorch runs eagerly), so ``Provenance.cache_hit`` is always False.
+What a fresh process pays for instead is building the kernels:
+``Solver(cache_dir=...)`` (or ``Problem.cache_dir``) points the kernels
+its solves load first at a persistent cache of built libraries
+(core/progcache.py), and the Solver counts its lookups in
+``disk_hits``/``disk_misses``/``disk_store_errors``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -60,7 +66,7 @@ from repro_torch.core.engine import (
     run_peel,
 )
 from repro_torch.graph.edgelist import EdgeList
-from repro_torch.graph.partition import pow2_bucket
+from repro_torch.graph.partition import ladder_schedule, pow2_bucket
 
 __all__ = [
     "DenseSubgraphResult", "Problem", "Provenance", "Solver", "c_grid", "default_solver",
@@ -81,6 +87,8 @@ _AUTO_SKETCH_NODES = 1_000_000
 _COMPACT_MIN_EDGES = constants.COMPACT_MIN_EDGES
 _COMPACT_MIN_NODES = constants.COMPACT_MIN_NODES
 _COMPACT_MAX_SEGMENTS = constants.COMPACT_MAX_SEGMENTS
+_LADDER_STRIDE = constants.LADDER_STRIDE
+_LADDER_MIN_EDGES = constants.LADDER_MIN_EDGES
 _LOCAL_BUDGET = constants.LOCAL_BUDGET
 _LOCAL_ROUNDS = constants.LOCAL_ROUNDS
 
@@ -118,9 +126,10 @@ class Problem:
       ``residency_cap_edges`` — the streaming substrate's chunk size,
       worker pool, pipeline window, disk spill and host residency bound
       (core/streaming.py).
-
-    The remaining fields belong to cells not ported yet; they are validated
-    as in the reference.
+    * ``edge_axes``/``wire_dtype``/``sketch_node_chunk`` — the mesh
+      substrate's shard axes (dimension names of the mesh), the dtype of
+      its per-pass degree reduction (``'bf16'`` halves it), and the node
+      chunk of the mesh sketch's degree queries (core/mapreduce.py).
     """
 
     objective: str = "undirected"
@@ -210,10 +219,12 @@ class Problem:
             objective="directed", c=None if c is None else float(c), eps=float(eps), **kw
         )
 
-    def resolve(self, n_nodes: int) -> "Problem":
+    def resolve(self, n_nodes: int, have_mesh: bool = False) -> "Problem":
         """Resolves the ``auto`` axes against the graph and validates the
-        requested cell, exactly as the reference does without a mesh:
-        ``substrate='auto'`` is ``'jit'`` (the port has no mesh yet)."""
+        requested cell, as the reference does.  ``substrate='auto'`` picks
+        the mesh only when the caller supplied one that spans more than one
+        rank (``have_mesh``; the reference's rule is a mesh and more than
+        one visible device), else ``'jit'``."""
         if self.stream_mode == "turnstile":
             if self.objective != "undirected":
                 raise ValueError(
@@ -253,7 +264,9 @@ class Problem:
                 compaction="off",
             )
         backend = self.backend
-        substrate = "jit" if self.substrate == "auto" else self.substrate
+        substrate = self.substrate
+        if substrate == "auto":
+            substrate = "mesh" if have_mesh else "jit"
         if backend == "auto":
             if substrate == "streaming":
                 backend = "exact"
@@ -288,7 +301,7 @@ class Problem:
                 "directed objectives need backend='exact' or 'sketch'"
             )
         if p.substrate == "mesh" and p.backend == "pallas":
-            raise ValueError("backend='pallas' has no mesh cell yet")
+            raise ValueError("backend='pallas' has no mesh (shard_map) cell yet")
         if p.substrate == "streaming" and (
             p.objective != "undirected" or p.backend != "exact"
         ):
@@ -305,14 +318,6 @@ class Problem:
             return int(self.max_passes)
         bound = max_passes_bound(n_nodes, self.eps)
         return 2 * bound if self.objective == "directed" else bound
-
-
-def _require_ported(prob: Problem) -> None:
-    """Raises for a resolved cell this slice of the port does not run."""
-    if prob.substrate == "mesh":
-        raise NotImplementedError(
-            "substrate='mesh' (ROADMAP Queue 1 item 6) is not ported to PyTorch yet"
-        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -560,6 +565,7 @@ class Solver:
         graph: EdgeList,
         problem: Problem,
         *,
+        mesh=None,
         checkpoint_dir: Optional[str] = None,
         resume: bool = False,
         seed: Optional[int] = None,
@@ -574,18 +580,27 @@ class Solver:
             res = Solver().solve(edges, Problem(substrate="local"), seed=17)
             res = Solver().solve(edges, Problem(substrate="streaming"),
                                  checkpoint_dir="ck", resume=True)
+            mesh = make_mesh((1,), ("data",))  # repro_torch.core.mapreduce
+            res = Solver().solve(edges, Problem(substrate="mesh"), mesh=mesh)
 
-        ``checkpoint_dir``/``resume`` apply to, and only to,
-        ``substrate='streaming'``; ``seed`` is required by, and only by,
-        ``substrate='local'``: the node whose dense neighborhood is wanted.
+        ``mesh`` (a ``DeviceMesh``, every rank passing the same full graph)
+        is required by ``substrate='mesh'``; ``checkpoint_dir``/``resume``
+        apply to, and only to, ``substrate='streaming'``; ``seed`` is
+        required by, and only by, ``substrate='local'``: the node whose
+        dense neighborhood is wanted.
         """
         if not isinstance(graph, EdgeList):
             raise TypeError(f"solve() takes an EdgeList graph, got {type(graph).__name__}")
-        prob = problem.resolve(graph.n_nodes)
+        prob = problem.resolve(graph.n_nodes, have_mesh=mesh is not None and mesh.size() > 1)
         if prob.substrate != "streaming" and (checkpoint_dir is not None or resume):
             raise ValueError("checkpoint_dir/resume only apply to substrate='streaming'")
         with self.kernel_cache(prob):
             if prob.substrate == "local":
+                if mesh is not None:
+                    raise ValueError(
+                        "substrate='local' is a host exploration + jit solve; "
+                        "a mesh does not apply"
+                    )
                 return self._solve_local(graph, prob, seed)
             if seed is not None:
                 raise ValueError(
@@ -594,14 +609,15 @@ class Solver:
                 )
             if prob.substrate == "streaming":
                 return self._solve_streaming(graph, prob, checkpoint_dir, resume)
-            return self._solve(graph, prob)
+            return self._solve(graph, prob, mesh)
 
-    def _solve(self, graph: EdgeList, prob: Problem) -> DenseSubgraphResult:
-        _require_ported(prob)
+    def _solve(self, graph: EdgeList, prob: Problem, mesh=None) -> DenseSubgraphResult:
         if prob.stream_mode == "turnstile":
             return self._solve_turnstile(graph, prob)
         if prob.compaction in ("geometric", "twophase"):
-            return self._solve_compacted(graph, prob)
+            return self._solve_compacted(graph, prob, mesh)
+        if prob.substrate == "mesh":
+            return self._solve_mesh(graph, prob, mesh)
         n = graph.n_nodes
         mp = prob.resolved_max_passes(n)
         backend = _backend_for(prob, graph)
@@ -637,20 +653,216 @@ class Solver:
             extras["compaction"] = best_ladder
         return self._wrap(best, prob, graph.n_nodes, mp, extras=extras)
 
-    def _solve_compacted(self, graph: EdgeList, prob: Problem) -> DenseSubgraphResult:
+    def _solve_mesh(self, graph: EdgeList, prob: Problem, mesh) -> DenseSubgraphResult:
+        """The uncompacted mesh substrate: this rank's shard of ``graph``
+        through :meth:`mesh_program`'s peel, once or once a c of the grid
+        (every rank reads the same reduced densities, so all pick the same
+        best c)."""
+        if mesh is None:
+            raise ValueError("substrate='mesh' needs solve(..., mesh=Mesh)")
+        from repro_torch.core.mapreduce import shard_edges
+
+        sh = shard_edges(graph, mesh, prob.edge_axes)
+        fn, mp = self._mesh_fn(prob, mesh, sh.n_nodes)
+        args = (sh.src, sh.dst, sh.weight, sh.mask)
+        if prob.objective == "directed" and prob.c is None:
+            return self._directed_grid(sh, prob, mp, lambda c: (fn(*args, c), None))
+        return self._wrap(fn(*args), prob, sh.n_nodes, mp)
+
+    def _mesh_fn(self, prob: Problem, mesh, n_nodes: int):
+        """``(fn, max_passes)`` for a resolved mesh Problem: ``fn(src, dst,
+        weight, mask, c=None)`` runs the engine on this rank's shard with
+        the mesh's backend (one ``all_reduce`` a pass)."""
+        from repro_torch.core.mapreduce import check_mesh_device, mesh_backend
+
+        mp = prob.resolved_max_passes(n_nodes)
+        backend = mesh_backend(prob, mesh, n_nodes)
+
+        def fn(src, dst, weight, mask, c=None) -> PeelOutcome:
+            check_mesh_device(src.device, mesh)
+            edges = EdgeList(src=src, dst=dst, weight=weight, mask=mask, n_nodes=n_nodes)
+            return run_cell(edges, prob, c=c, backend=backend, max_passes=mp)
+
+        return fn, mp
+
+    def mesh_program(self, problem: Problem, mesh, n_nodes: int):
+        """``fn(src, dst, weight, mask[, c]) -> PeelOutcome`` over this
+        rank's shard (:func:`~repro_torch.core.mapreduce.shard_edges`): the
+        lowering target of the ``make_distributed_*`` builders.  There is
+        nothing to compile; the name and signature are the reference's."""
+        fn, _ = self._mesh_fn(problem.resolve(n_nodes), mesh, n_nodes)
+        return fn
+
+    def mesh_ladder_program(
+        self, problem: Problem, mesh, n_nodes: int, m_edges: int
+    ) -> Tuple[Any, Tuple[int, ...], int]:
+        """The collective mesh ladder for a graph of ``m_edges`` edge slots:
+        ``(fn, schedule, n_shards)``, ``fn(src, dst, weight, mask[, c]) ->
+        (PeelOutcome, rung_t)`` over this rank's shard of the edges padded
+        to ``schedule[0] * n_shards``, ``rung_t`` the absolute pass count
+        after each rung.  The schedule is the reference's: rung 0 the exact
+        shard-rounded input, rung 1 ``pow2(ceil(m0/2))`` (the host ladder's
+        half-occupancy trigger), then a stride-``_LADDER_STRIDE`` pow2 tail
+        floored at ``_LADDER_MIN_EDGES // n_shards``.  The lowering target
+        of ``make_distributed_peel_ladder`` and of ``solve()`` for mesh ×
+        ``compaction='geometric'``."""
+        from repro_torch.core.mapreduce import check_mesh_device, edge_shards
+
+        prob = problem.resolve(n_nodes, have_mesh=True)
+        n_shards = edge_shards(mesh, prob.edge_axes).count
+        shard_m0 = -(-max(int(m_edges), 1) // n_shards)
+        floor = pow2_bucket(max(1, _LADDER_MIN_EDGES // n_shards))
+        half = pow2_bucket(-(-shard_m0 // 2), floor)
+        tail = ladder_schedule(max(half // _LADDER_STRIDE, 1), floor=floor,
+                               stride=_LADDER_STRIDE)
+        schedule = (shard_m0,)
+        schedule += (half,) if half < shard_m0 else ()
+        # ladder_schedule lowers its floor to a smaller top; keep only tail
+        # rungs at or above the real floor.
+        schedule += tuple(cap for cap in tail if cap < schedule[-1] and cap >= floor)
+        mp = prob.resolved_max_passes(n_nodes)
+
+        def fn(src, dst, weight, mask, c=None):
+            check_mesh_device(src.device, mesh)
+            return self._mesh_ladder(prob, mp, mesh, n_nodes, schedule, n_shards,
+                                     (src, dst, weight, mask), c)
+
+        return fn, schedule, n_shards
+
+    def _mesh_ladder(self, prob: Problem, mp: int, mesh, n_nodes: int,
+                     schedule: Tuple[int, ...], n_shards: int, shard, c):
+        """The reference's single-program ladder as a host loop over rungs,
+        with no host gather or reshard: each rung is one engine segment
+        whose reduced alive-edge trigger sits at the next rung's global
+        capacity, so on exit its survivors fit there; they move with
+        :func:`~repro_torch.core.mapreduce.mesh_compact_edges`.  Node
+        bitmaps stay in the full id space, so per-pass node work stays
+        O(n) on every rung (the host ladder renumbers nodes); compaction
+        only re-buckets edges, so the result equals the host ladder's and
+        ``compaction='off'``'s for integer-valued weights."""
+        from repro_torch.core.mapreduce import mesh_backend, mesh_compact_edges
+
+        src, dst, weight, mask = shard
+        dev = src.device
+        directed = prob.objective == "directed"
+        backend = mesh_backend(prob, mesh, n_nodes)
+        policy = _policy_for(prob, c=c)
+        ones = torch.ones(n_nodes, dtype=torch.bool, device=dev)
+        empty = torch.zeros(0, dtype=torch.bool, device=dev)
+        alive, ta = ones, (ones if directed else empty)
+        # The full set seeds the best, as the uncompacted loop's best0.
+        best_alive, best_t = ones, (ones if directed else empty)
+        best_rho = torch.tensor(-torch.inf, dtype=torch.float32, device=dev)
+        best_size = torch.zeros((), dtype=torch.int32, device=dev)
+        t = 0
+        # Rung 0's entry count: every masked edge has both ends alive.
+        ae = backend.count_edges(mask)
+        hist_len = mp if prob.track_history else 1
+        hist_n = torch.full((hist_len,), -1, dtype=torch.int32, device=dev)
+        hist_m = torch.zeros(hist_len, dtype=torch.float32, device=dev)
+        hist_rho = torch.zeros(hist_len, dtype=torch.float32, device=dev)
+        rung_t = []
+        for i in range(len(schedule)):
+            last = i == len(schedule) - 1
+            out = run_peel(
+                EdgeList(src=src, dst=dst, weight=weight, mask=mask, n_nodes=n_nodes),
+                policy, backend, mp, track_history=prob.track_history,
+                init_alive=alive, init_t_alive=ta if directed else None, init_t=t,
+                init_best_empty=True,
+                compact_below=None if last else schedule[i + 1] * n_shards,
+                init_alive_edges=ae, init_ok_from_mask=True, with_edge_state=not last,
+            )
+            if not last:
+                # The carried filter and its reduced count feed the compaction.
+                out, edge_ok, ae = out
+            alive, t = out.alive, out.passes
+            if directed:
+                ta = out.t_alive
+            # Strict >: the earliest rung (pass) wins ties.
+            improved = out.best_density > best_rho
+            best_alive = torch.where(improved, out.best_alive, best_alive)
+            if directed:
+                best_t = torch.where(improved, out.best_t, best_t)
+            best_rho = torch.where(improved, out.best_density, best_rho)
+            best_size = torch.where(improved, out.best_size, best_size)
+            if prob.track_history:
+                # Absolute pass indexing: rungs write disjoint slots.
+                sel = out.history_n >= 0
+                hist_n = torch.where(sel, out.history_n, hist_n)
+                hist_m = torch.where(sel, out.history_m, hist_m)
+                hist_rho = torch.where(sel, out.history_rho, hist_rho)
+            rung_t.append(t)
+            if not last:
+                src, dst, weight, mask = mesh_compact_edges(
+                    src, dst, weight, edge_ok, ae, schedule[i + 1], mesh, prob.edge_axes)
+        outcome = PeelOutcome(
+            best_alive=best_alive, best_t=best_t, best_density=best_rho,
+            best_size=best_size, passes=t, alive=alive, t_alive=ta,
+            history_n=hist_n, history_m=hist_m, history_rho=hist_rho,
+        )
+        return outcome, rung_t
+
+    def _mesh_ladder_runner(self, graph: EdgeList, prob: Problem, mesh):
+        """mesh × ``'geometric'``: pads and shards the graph once, then
+        returns ``run(c) -> (outcome, ladder report)`` over the collective
+        ladder (the c grid reuses the shard).  The report has the
+        reference's keys and values; ``single_program`` there means
+        collective-only, with no host gather or reshard between rungs."""
+        from repro_torch.core.mapreduce import shard_edges
+
+        fn, schedule, n_shards = self.mesh_ladder_program(
+            prob, mesh, graph.n_nodes, graph.n_edges_padded)
+        sh = shard_edges(graph.with_padding(schedule[0] * n_shards), mesh, prob.edge_axes)
+
+        def run(c: Optional[float]) -> Tuple[PeelOutcome, Dict[str, Any]]:
+            out, rung_t = fn(sh.src, sh.dst, sh.weight, sh.mask, c)
+            segments = []
+            slots = prev = 0
+            for i, cap in enumerate(schedule):
+                m_buf = cap * n_shards
+                passes, prev = rung_t[i] - prev, rung_t[i]
+                slots += passes * m_buf
+                segments.append({
+                    "n_buf": int(graph.n_nodes),
+                    "m_buf": m_buf,
+                    "passes": passes,
+                    "compact_below": (None if i == len(schedule) - 1
+                                      else schedule[i + 1] * n_shards),
+                    "cache_hit": False,
+                })
+            ladder = {
+                "mode": prob.compaction,
+                "segments": segments,
+                "edge_slots_scanned": int(slots),
+                "passes": int(out.passes),
+                "single_program": True,
+                "host_round_trips": 0,
+                "schedule": [cap * n_shards for cap in schedule],
+            }
+            return out, ladder
+
+        return run
+
+    def _solve_compacted(self, graph: EdgeList, prob: Problem, mesh=None) -> DenseSubgraphResult:
         """solve() tail for ``compaction in ('geometric', 'twophase')``: the
-        ladder once, or once a c of the grid."""
+        ladder once, or once a c of the grid.  mesh × geometric runs the
+        collective ladder (:meth:`_mesh_ladder_runner`); everything else
+        the host schedule (:meth:`_run_compacted`)."""
+        if prob.substrate == "mesh" and mesh is None:
+            raise ValueError("substrate='mesh' needs solve(..., mesh=Mesh)")
+        if prob.substrate == "mesh" and prob.compaction == "geometric":
+            run = self._mesh_ladder_runner(graph, prob, mesh)
+        else:
+            run = functools.partial(self._run_compacted, graph, prob, mesh=mesh)
         n = graph.n_nodes
         mp = prob.resolved_max_passes(n)
         if prob.objective == "directed" and prob.c is None:
-            return self._directed_grid(
-                graph, prob, mp, lambda c: self._run_compacted(graph, prob, c))
-        c = prob.c if prob.objective == "directed" else None
-        out, ladder = self._run_compacted(graph, prob, c)
+            return self._directed_grid(graph, prob, mp, run)
+        out, ladder = run(prob.c if prob.objective == "directed" else None)
         return self._wrap(out, prob, n, mp, extras={"compaction": ladder})
 
     def _run_compacted(
-        self, graph: EdgeList, prob: Problem, c: Optional[float] = None
+        self, graph: EdgeList, prob: Problem, c: Optional[float] = None, mesh=None
     ) -> Tuple[PeelOutcome, Dict[str, Any]]:
         """The geometric-compaction ladder, on the graph's device: runs the
         engine loop in segments and gathers the survivors (edges and nodes)
@@ -667,6 +879,11 @@ class Solver:
         The gather and relabel are prefix sums on the device
         (:func:`~repro_torch.core.engine.compact_edges`), and so is the next
         rung's tiling; the host reads a few scalars per rung.
+
+        With a ``mesh`` (``'twophase'``, or a direct call with
+        ``'geometric'``) every rank holds the whole rung buffer and computes
+        the same compaction; each rung then runs on this rank's block of
+        it, and ``compact_below`` is half the sharded padded size.
         """
         dev = graph.device
         directed = prob.objective == "directed"
@@ -710,8 +927,19 @@ class Solver:
 
             edges = EdgeList(src=src, dst=dst, weight=w, mask=msk,
                              n_nodes=n_cur, directed=graph.directed)
+            m_buf = len(src)
+            if mesh is None:
+                backend = _backend_for(prob, edges)
+            else:
+                from repro_torch.core.mapreduce import edge_shards, mesh_backend, shard_edges
+
+                edges = shard_edges(edges, mesh, prob.edge_axes)
+                backend = mesh_backend(prob, mesh, n_cur)
+                m_buf = len(edges.src) * edge_shards(mesh, prob.edge_axes).count
+                if compact_below is not None:
+                    compact_below = max(m_buf // 2, 1)
             out = run_cell(
-                edges, prob, c=c, backend=_backend_for(prob, edges), max_passes=seg_mp,
+                edges, prob, c=c, backend=backend, max_passes=seg_mp,
                 init_alive=s_al, init_t_alive=t_al, init_t=t_done, init_best_empty=True,
                 compact_below=compact_below, init_alive_edges=cur_alive_edges,
                 init_ok_from_mask=True,
@@ -744,7 +972,6 @@ class Solver:
                 hist_n[:k] = torch.where(sel, shn, hist_n[:k])
                 hist_m[:k] = torch.where(sel, out.history_m, hist_m[:k])
                 hist_rho[:k] = torch.where(sel, out.history_rho, hist_rho[:k])
-            m_buf = len(src)
             slots_scanned += (t_done - t_prev) * m_buf
             segments.append({
                 "n_buf": int(n_cur),

@@ -7,8 +7,10 @@ and removes the below-threshold nodes.  It is written once, in
 Algorithm 1's :class:`UndirectedThreshold`, Algorithm 2's
 :class:`AtLeastKFraction`, Algorithm 3's :class:`DirectedST`) and a
 **DegreeBackend** (how degrees are counted: :class:`ExactBackend` with
-``index_add_``, :class:`FnBackend` around the tiled-degree kernel, or the
-Count-Sketch backend of core/countsketch.py).
+``index_add_``, :class:`FnBackend` around the tiled-degree kernel, the
+Count-Sketch backend of core/countsketch.py, or, on an edge-sharded mesh,
+:class:`MeshSegmentSumBackend`, whose partial counts are summed over the
+ranks by one ``all_reduce`` a pass).
 
 The reference runs the passes in a ``jax.lax.while_loop``.  Here the loop
 runs on the host and reads one device boolean per pass, the continuation
@@ -35,7 +37,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Protocol, Tuple, U
 
 import torch
 
-from repro_torch import hostsync
+from repro_torch import collectives, hostsync
 from repro_torch.graph.edgelist import EdgeList
 
 
@@ -398,9 +400,57 @@ class FnBackend:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshSegmentSumBackend:
+    """Degrees of an edge shard, summed over the ranks (paper §5.2).
+
+    Each rank counts its shard's partial degrees with ``index_add_`` and
+    packs them with its alive weight as ``[deg | total]`` (directed:
+    ``[out | in | total]``), and ONE ``all_reduce`` over ``group`` (the
+    edge axes' process group) sums the pack, so a pass costs one
+    collective and every rank holds the same degrees.  ``wire_dtype='bf16'``
+    casts the pack, total included, to bf16 for the reduction and back.
+    It takes no sweep lanes: ``solve_batch`` runs on the jit substrate."""
+
+    group: Any  # torch.distributed ProcessGroup over the edge axes
+    wire_dtype: str = "f32"
+
+    def _reduce(self, packed: torch.Tensor) -> torch.Tensor:
+        if self.wire_dtype == "bf16":
+            return collectives.all_reduce(packed.to(torch.bfloat16), self.group).to(torch.float32)
+        return collectives.all_reduce(packed, self.group)
+
+    def undirected(self, edges, w_alive):
+        deg, total = ExactBackend().undirected(edges, w_alive)
+        packed = self._reduce(torch.cat([deg, total[None]]))
+        return packed[:-1], packed[-1]
+
+    def directed(self, edges, w_alive):
+        n = edges.n_nodes
+        out_deg, in_deg, total = ExactBackend().directed(edges, w_alive)
+        packed = self._reduce(torch.cat([out_deg, in_deg, total[None]]))
+        return packed[:n], packed[n:2 * n], packed[-1]
+
+    def count_edges(self, ok: torch.Tensor) -> torch.Tensor:
+        """The global alive-edge count (the ladder's trigger): this shard's
+        count, summed over the ranks as one int32, so every rank ends a
+        segment at the same pass."""
+        return collectives.all_reduce(ok.sum(dtype=torch.int32), self.group)
+
+
 # ---------------------------------------------------------------------------
 # The engine
 # ---------------------------------------------------------------------------
+
+
+def _count_ok(backend, ok: torch.Tensor) -> torch.Tensor:
+    """The count of an alive-edge mask.  A backend that reduces across
+    ranks exposes ``count_edges``, so the segment boundary is a collective
+    decision; everything else counts locally."""
+    counter = getattr(backend, "count_edges", None)
+    if counter is not None:
+        return counter(ok)
+    return ok.sum()
 
 
 def _edge_filter(edges: EdgeList, s_alive: torch.Tensor, t_alive: torch.Tensor,
@@ -473,7 +523,7 @@ def run_peel(
         if init_alive_edges is not None:
             ae0 = torch.as_tensor(init_alive_edges, dtype=torch.int64, device=dev)
         else:
-            ae0 = ok0.sum()
+            ae0 = _count_ok(backend, ok0)
     s = PeelState(
         alive=alive0,
         t_alive=ta0,
@@ -526,7 +576,7 @@ def run_peel(
         ok_next, ae = s.edge_ok, s.alive_edges
         if compact_below is not None:
             ok_next = _edge_filter(edges, alive, t_alive if directed else alive, None)
-            ae = ok_next.sum()
+            ae = _count_ok(backend, ok_next)
         if track_history:
             for hist, val in ((s.history_n, n_s), (s.history_m, total), (s.history_rho, rho)):
                 if active is not None:

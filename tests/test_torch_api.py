@@ -83,10 +83,15 @@ def test_post_init_rejects_like_reference(kw):
 
 
 @pytest.mark.parametrize("kw", [dict(substrate="mesh")])
-def test_unported_cells_raise_not_implemented(kw):
-    edges = _port(erdos_renyi(50, avg_deg=4, seed=0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.solve(edges, api.Problem(**kw))
+def test_mesh_without_a_mesh_raises_like_reference(kw):
+    """Every cell is ported; the mesh substrate asks for its mesh with the
+    reference's words (the mesh cells themselves: tests/test_torch_mapreduce.py)."""
+    edges = erdos_renyi(50, avg_deg=4, seed=0)
+    with pytest.raises(ValueError) as want:
+        ref_api.Solver().solve(edges, ref_api.Problem(**kw))
+    with pytest.raises(ValueError) as got:
+        api.solve(_port(edges), api.Problem(**kw))
+    assert str(got.value) == str(want.value) == "substrate='mesh' needs solve(..., mesh=Mesh)"
 
 
 @pytest.mark.parametrize(

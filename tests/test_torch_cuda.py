@@ -886,3 +886,89 @@ def test_streaming_failing_chunk_on_card_keeps_checkpoint(cuda, tmp_path):
     want = StreamingDensest(base, n, eps=0.3, device="cpu").run(resume=False)
     got = StreamingDensest(base, n, eps=0.3, checkpoint_dir=ck, device=cuda).run(resume=True)
     _same_stream_state(got, want)
+
+
+# -- the §5.2 mesh substrate: NCCL at world size 1 -----------------------------
+
+
+@pytest.fixture(scope="module")
+def card_meshes():
+    """A one-rank card mesh (NCCL, bound to the card) and a one-rank CPU mesh
+    (gloo) in this process, every group with a 60 s timeout."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the card mesh reduces over NCCL")
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import mapreduce
+
+    saved = mapreduce.GROUP_TIMEOUT
+    mapreduce.GROUP_TIMEOUT = datetime.timedelta(seconds=60)
+    try:
+        yield (mapreduce.make_mesh((1,), ("data",)),
+               mapreduce.make_mesh((1,), ("data",), device="cpu"))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        mapreduce.GROUP_TIMEOUT = saved
+
+
+MESH_CELLS = {
+    "off": ("undirected", dict(eps=0.5, compaction="off")),
+    "twophase": ("undirected", dict(eps=0.5, compaction="twophase", twophase_passes=2)),
+    "geometric": ("undirected", dict(eps=0.5, compaction="geometric")),
+    "directed.c4": ("directed", dict(c=4.0, eps=0.5)),
+    "at_least_k": ("at_least_k", dict(k=2_000, eps=0.5)),
+}
+
+
+def _mesh_graph(objective, device):
+    if objective == "directed":
+        return generators.directed_planted(20_000, 5.0, 200, 50, 0.3, seed=0, device=device)[0]
+    return generators.chung_lu_power_law(n=20_000, seed=0, device=device)
+
+
+@pytest.mark.parametrize("cell", sorted(MESH_CELLS))
+def test_mesh_on_card_equals_jit(card_meshes, cell):
+    """NCCL at world size 1: the mesh solve == the jit solve on the card,
+    field for field; the geometric ladder is the collective one."""
+    from repro_torch import collectives
+
+    mesh, _ = card_meshes
+    objective, kw = MESH_CELLS[cell]
+    edges = _mesh_graph(objective, "cuda")
+    make = getattr(Problem, objective)
+    want = solve(edges, make(track_history=True, **kw))
+    collectives.reset()
+    got = solve(edges, make(substrate="mesh", track_history=True, **kw), mesh=mesh)
+    _equal_results(got, want)
+    assert got.provenance.substrate == "mesh"
+    assert collectives.all_reduce.count >= got.passes
+    if got.provenance.compaction == "geometric":
+        lad = got.extras["compaction"]
+        assert lad["single_program"] and lad["host_round_trips"] == 0
+        assert collectives.all_gather.count == 4 * (len(lad["segments"]) - 1)
+
+
+def test_mesh_sketch_on_card_launches_k2_once_a_pass(card_meshes):
+    mesh, _ = card_meshes
+    edges = generators.chung_lu_power_law(n=20_000, seed=0, device="cuda")
+    kw = dict(eps=0.5, backend="sketch", track_history=True)
+    want = solve(edges, Problem.undirected(**kw))
+    before = count_sketch_update.launches
+    got = solve(edges, Problem.undirected(substrate="mesh", **kw), mesh=mesh)
+    assert count_sketch_update.launches - before == got.passes
+    _equal_results(got, want)
+
+
+@pytest.mark.parametrize("compaction", ["off", "geometric"])
+def test_mesh_bf16_wire_on_card_equals_cpu(card_meshes, compaction):
+    """The bf16 wire on the card (NCCL) == on the CPU (gloo), world size 1."""
+    answers = []
+    for mesh, device in zip(card_meshes, ("cuda", "cpu")):
+        edges = generators.chung_lu_power_law(n=20_000, seed=0, device=device)
+        answers.append(solve(edges, Problem.undirected(
+            eps=0.5, substrate="mesh", wire_dtype="bf16", compaction=compaction,
+            track_history=True), mesh=mesh))
+    _equal_results(*answers)

@@ -1,12 +1,13 @@
 """The JAX golden fixture for the card stays true: every entry of
 tests/fixtures/torch_port/golden.json (cells exact, pallas, sketch and
 turnstile, on two graphs; Algorithms 2 and 3 and an eps sweep; the
-semi-streaming substrate; per-seed
+semi-streaming substrate; the §5.2 mesh substrate on 4 devices; per-seed
 serving in both extraction modes and the local front door; the REDUCED
 llama3.2-3b's prefill logits, greedy tokens and margins) is recomputed with ``repro`` here, and the port's CPU
 answers meet it too (``chip_smoke.py`` holds the port's CUDA answers
 against the same file, on a machine without JAX)."""
 
+import functools
 import json
 import os
 import sys
@@ -74,6 +75,26 @@ def test_stream_golden_matches_reference(case):
 @pytest.mark.parametrize("case", sorted(golden.STREAM_CASES))
 def test_port_cpu_meets_stream_golden(case):
     assert golden.port_stream_entry(case, "cpu") == _load()["streaming"]["answers"][case]
+
+
+# -- the mesh entries (the §5.2 mesh substrate on 4 devices) -----------------
+
+
+@functools.lru_cache(maxsize=1)
+def _mesh_reference() -> dict:
+    """Every mesh entry, recomputed by the JAX package in one child process
+    with 4 host devices (at most 600 s)."""
+    return golden.reference_mesh_entries(timeout=600)
+
+
+@pytest.mark.parametrize("case", sorted(golden.MESH_CASES))
+def test_mesh_golden_matches_reference(case):
+    """The port's 4 gloo ranks meet these entries in
+    tests/test_torch_mapreduce.py."""
+    fixture = _load()["mesh"]
+    assert fixture["devices"] == golden.MESH_DEVICES
+    assert fixture["cases"][case] == golden.MESH_CASES[case]
+    assert fixture["answers"][case] == _mesh_reference()[case]
 
 
 # -- the serve entries (the query engine in both modes, the local front door) --

@@ -54,6 +54,7 @@ PORT_MODULES = (
     "repro_torch.ioutil", "repro_torch.core.local", "repro_torch.core.progcache",
     "repro_torch.serve", "repro_torch.serve.densest", "repro_torch.serve.resilience",
     "repro_torch.serve.turnstile", "repro_torch.core.streaming", "repro_torch.graph.edgelist",
+    "repro_torch.core.mapreduce", "repro_torch.collectives",
 )
 
 
@@ -96,6 +97,20 @@ def test_entry_points_raise_without_cuda_and_without_device():
         generators.directed_planted(100, 3, 10, 5, 0.5, seed=0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         generators.bipartite_spam(50, 40, 3, 5, 5, 0.5, seed=0)
+
+
+def test_mesh_entry_point_raises_without_cuda_and_without_device():
+    """``make_mesh`` defaults to the card: without one it raises before it
+    starts any process group (no quiet gloo world)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is the card")
+    import torch.distributed as dist
+
+    from repro_torch.core.mapreduce import make_mesh
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh((1,), ("data",))
+    assert not dist.is_initialized()
 
 
 def test_serving_entry_points_raise_without_cuda_and_without_device():
