@@ -5,7 +5,7 @@
 
 Builds the port's four CUDA kernels from the sources in this checkout (one
 ``nvcc`` each, all started together), holds each against its plain PyTorch
-version on the card, then drives the port's eight paths through the
+version on the card, then drives the port's nine paths through the
 entry points a user calls:
 
 * Algorithm 1 on the geometric ladder, ``solve(edges,
@@ -44,6 +44,14 @@ entry points a user calls:
   twophase and the bf16 wire against the same on a one-rank gloo mesh on
   the CPU, and the directed 976k graph at c=4 against its jit solve, each
   run's collectives counted;
+* the port's benchmarks and examples (``benchmarks/torch_port/``,
+  ``examples/torch_port/``) at the reference's defaults, on the graphs and
+  the NCCL mesh above: the engine's backends, compaction and the mesh
+  ladders, the front door and K1's load, every table and figure of the
+  paper (Table 4 on livejournal_md), streaming, turnstile (K3 once a
+  batch), serving with a cold start of K1-K3 in fresh processes,
+  resilience, and the five examples; each record is printed on a
+  ``[bench.*]`` line and written under experiments/bench/torch/;
 * the LM path at the full width of llama3.2-3b (28 layers, random weights
   from a seeded ``torch.Generator``): ``prefill`` of an 8,192-token prompt
   with ``attn_impl='pallas'`` (K4, flash attention, once per layer)
@@ -76,14 +84,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "scripts"))
+sys.path.insert(0, str(ROOT))  # benchmarks.torch_port, examples/torch_port
+
+from repro_torch.configs.densest_mapreduce import chung_lu_args  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 F32_FLOPS = 67e12  # outside the tensor cores
 EPS = 0.5
-FLICKR = dict(n=976_000, exponent=2.2, avg_deg=2 * 7.6e6 / 976_000, seed=0)
-# src/repro/configs/densest_mapreduce.py SHAPES["livejournal_md"].
-LIVEJOURNAL = dict(n=4_840_000, exponent=2.2, avg_deg=2 * 68.9e6 / 4_840_000, seed=0)
+# The Chung-Lu draws of configs/densest_mapreduce.py's flickr_sm and
+# livejournal_md (their node counts; the average degree that draws their
+# edge counts; exponent 2.2, seed 0).
+FLICKR = chung_lu_args("flickr_sm")
+LIVEJOURNAL = chung_lu_args("livejournal_md")
 TURNSTILE_BATCH = 1 << 20
 TIMED_LAUNCHES = 30
 DEV = "cuda"  # every tensor of the run lives here
@@ -2439,6 +2452,266 @@ def phase_lm_golden() -> None:
             f"{golden.LM_LOGITS_TOL})", tokens=got["tokens"])
 
 
+# -- Path 9: the port's benchmarks and examples (benchmarks/torch_port/,
+# examples/torch_port/), through K1, K2 and K3 -------------------------------
+
+def _bench_args(mod, *argv) -> object:
+    """``mod``'s arguments (its defaults, the reference's) on ``DEV``, its
+    record under experiments/bench/torch/ (the module's own default path)."""
+    return mod.parse_args(list(argv) + ["--device", DEV])
+
+
+def _zero_counts() -> None:
+    for k in _kernel_counters():
+        k.launches = 0
+
+
+def _counts() -> dict:
+    k1, k2, k3, k4 = _kernel_counters()
+    return {"k1": k1.launches, "k2": k2.launches, "k3": k3.launches, "k4": k4.launches}
+
+
+def _bench_record(phase: str, args, report: dict, launches: dict, seconds: float) -> None:
+    """Writes the record where ``main`` would and prints it on one line."""
+    from benchmarks.torch_port import common
+
+    common.write_json(report, args.out)
+    print(f"[{phase}] " + json.dumps({"seconds": round(seconds, 3), "launches": launches,
+                                      "record": report}), flush=True)
+
+
+def _drive(phase: str, fn):
+    """``fn()`` with every kernel's count set to 0 just before and read just
+    after: (result, launches, seconds)."""
+    import torch
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _counts(), time.perf_counter() - t0
+
+
+def phase_bench_engine(flickr) -> dict:
+    """``bench.engine`` at flickr_sm: exact, sketch (t=5, b=2^15) and pallas
+    through the engine; K1 launches == the pallas run's passes, K2 == the
+    sketch run's, pallas == exact."""
+    from benchmarks.torch_port import bench_engine as mod
+
+    args = _bench_args(mod, "--shape", "flickr_sm")
+    rep, launches, sec = _drive("bench.engine", lambda: mod.run(args, graph=flickr))
+    rows = {r["backend"]: r for r in rep["rows"]}
+    runs = mod.REPEATS + 2  # warm-up, timed repeats, the counted run
+    for backend, key in (("pallas", "k1"), ("sketch", "k2")):
+        r = rows[backend]
+        if r["kernel_launches"] != r["passes"] or launches[key] != runs * r["passes"]:
+            raise AssertionError(f"bench.engine {backend}: {r['kernel_launches']} launches in "
+                                 f"a run of {r['passes']} passes ({launches[key]} in all)")
+    if (rows["pallas"]["rho"], rows["pallas"]["passes"]) != (rows["exact"]["rho"],
+                                                             rows["exact"]["passes"]):
+        raise AssertionError(f"bench.engine: pallas {rows['pallas']} != exact {rows['exact']}")
+    _bench_record("bench.engine", args, rep, launches, sec)
+    return launches
+
+
+def phase_bench_peel(flickr, mesh) -> dict:
+    """``bench.peel`` at flickr_sm: compaction off, twophase and geometric
+    bit-identical, slots scanned recorded; the mesh block on the script's
+    one-rank NCCL mesh (host ladder and collective ladder == off)."""
+    from benchmarks.torch_port import bench_peel_compaction as mod
+
+    args = _bench_args(mod, "--shape", "flickr_sm")
+    rep, launches, sec = _drive("bench.peel", lambda: mod.run(args, graph=flickr, mesh=mesh))
+    if not mod.identical(rep):
+        raise AssertionError(f"bench.peel: a mode is not bit-identical to off: {rep['eps']}")
+    for eps, rows in rep["eps"].items():
+        if rows["mesh"]["ranks"] != 1:
+            raise AssertionError(f"bench.peel: the mesh has {rows['mesh']['ranks']} ranks")
+        log("bench.peel", eps=eps, slots_scanned={
+            m: rows[m]["edge_slots_scanned"] for m in ("off", "twophase", "geometric")},
+            collective_ladder_slots=rows["mesh"]["collective_ladder"]["edge_slots_scanned"])
+    _bench_record("bench.peel", args, rep, launches, sec)
+    return launches
+
+
+def phase_bench_api(flickr) -> dict:
+    """``bench.api`` at flickr_sm: first call against warm (the pallas first
+    call loads K1 through the cache of built kernels), the eps sweep
+    against sequential solves (lanes of f32-exact eps bitwise equal)."""
+    from benchmarks.torch_port import bench_api as mod
+
+    args = _bench_args(mod, "--shape", "flickr_sm")
+    rep, launches, sec = _drive("bench.api", lambda: mod.run(args, graph=flickr))
+    kl, sb = rep["kernel_load"], rep["solve_batch"]
+    if not (kl["library_loaded"] and kl["equal_to_exact"]) or kl["builds_this_process"] or (
+            (kl["disk_hits"], kl["disk_misses"]) != (1, 0)):
+        raise AssertionError(f"bench.api: K1's first call {kl}")
+    if not all(eq for eq, exact in zip(sb["lane_equal_to_solve"], sb["f32_exact"]) if exact):
+        raise AssertionError(f"bench.api: a lane != its solve: {sb}")
+    if launches["k1"] == 0:
+        raise AssertionError("bench.api: the pallas solves launched no K1")
+    _bench_record("bench.api", args, rep, launches, sec)
+    return launches
+
+
+def phase_bench_paper(flickr, lj, mesh) -> dict:
+    """``bench.paper``: every entry of the port's ``paper_benches.ALL``:
+    fig61 at flickr_sm, table4 at livejournal_md (t=5), fig67 on the
+    script's one-rank NCCL mesh, the rest at the reference's sizes."""
+    from benchmarks.torch_port import common
+    from benchmarks.torch_port import paper_benches as mod
+
+    graphs = {"fig61": dict(edges=flickr), "table4": dict(edges=lj, t=5),
+              "fig67": dict(mesh=mesh)}
+    total = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+    device = common.device_record(DEV)
+    for name, fn in mod.ALL.items():
+        rows, launches, sec = _drive(f"bench.paper.{name}",
+                                     lambda fn=fn, name=name: fn(**graphs.get(name, {}),
+                                                                 device=DEV))
+        for k in total:
+            total[k] += launches[k]
+        if name == "kernels":
+            (row,) = rows
+            if not row["equal_to_plain_and_index_add"] or row["kernel_launches"] == 0:
+                raise AssertionError(f"bench.paper.kernels: {row}")
+        if name == "table4" and launches["k2"] == 0:
+            raise AssertionError("bench.paper.table4: the sketch runs launched no K2")
+        if name == "fig67" and any(r["ranks"] != 1 for r in rows):
+            raise AssertionError(f"bench.paper.fig67: {rows}")
+        rec = {"device": device, "name": name, "rows": rows}
+        common.write_json(rec, common.out_path(f"{name}.json"))
+        print(f"[bench.paper.{name}] " + json.dumps({"seconds": round(sec, 3),
+                                                     "launches": launches, "record": rec}),
+              flush=True)
+    return total
+
+
+def phase_bench_stream() -> dict:
+    """``bench.stream`` at the reference's defaults (200k nodes, 2^13-edge
+    chunks, the memmap store in a temporary directory): sync, async and
+    the geometric ladder in RAM and spilled, each bitwise equal to sync."""
+    from benchmarks.torch_port import bench_stream as mod
+
+    args = _bench_args(mod)
+    rep, launches, sec = _drive("bench.stream", lambda: mod.run(args))
+    bad = [m for m, r in rep["modes"].items() if not r["bit_identical_to_sync"]]
+    if bad:
+        raise AssertionError(f"bench.stream: {bad} differ from the synchronous run")
+    _bench_record("bench.stream", args, rep, launches, sec)
+    return launches
+
+
+def phase_bench_turnstile() -> dict:
+    """``bench.turnstile`` at the reference's defaults: K3 launches == the
+    update batches (per trial, per sweep point and in all); every trial
+    inside the envelope."""
+    from benchmarks.torch_port import bench_turnstile as mod
+
+    args = _bench_args(mod)
+    rep, launches, sec = _drive("bench.turnstile", lambda: mod.run(args))
+    points = rep["trials"] + rep["scaling"]
+    batches = sum(p["batches_applied"] for p in points)
+    if any(p["k3_launches"] != p["batches_applied"] for p in points) or (
+            launches["k3"] != batches):
+        raise AssertionError(f"bench.turnstile: K3 launches {launches['k3']} for {batches} "
+                             "batches")
+    if rep["accuracy"]["envelope_pass_rate"] != 1.0:
+        raise AssertionError(f"bench.turnstile: {rep['accuracy']}")
+    _bench_record("bench.turnstile", args, rep, launches, sec)
+    return launches
+
+
+def phase_bench_serve() -> dict:
+    """``bench.serve`` at the reference's defaults: the engine's answers ==
+    standalone solves; the cold-start children load K1-K3 from a fresh
+    cache directory (nvcc) and then from the warm one with nvcc 0 times."""
+    from benchmarks.torch_port import bench_serve as mod
+
+    args = _bench_args(mod)
+    rep, launches, sec = _drive("bench.serve", lambda: mod.run(args))
+    cs = rep["cold_start"]
+    if not rep["bit_identical_to_solve"] or cs["warm_disk_nvcc_runs"] != 0 or (
+            cs["uncached_nvcc_runs"] != 3 or cs["warm_disk_hits"] != 3):
+        raise AssertionError(f"bench.serve: {rep['bit_identical_to_solve']} {cs}")
+    _bench_record("bench.serve", args, rep, launches, sec)
+    return launches
+
+
+def phase_bench_resilience() -> dict:
+    """``bench.resilience`` at the reference's defaults: fault-free answers
+    bitwise equal with and without the resilience layer; under the storm
+    no answer is fabricated."""
+    from benchmarks.torch_port import bench_resilience as mod
+
+    args = _bench_args(mod)
+    rep, launches, sec = _drive("bench.resilience", lambda: mod.run(args))
+    if not rep["fault_free_bit_identical"] or rep["fault_storm"]["fabricated_results"]:
+        raise AssertionError(f"bench.resilience: {rep['fault_storm']}")
+    _bench_record("bench.resilience", args, rep, launches, sec)
+    return launches
+
+
+def _example(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / "torch_port" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# The reference's turnstile_churn at its defaults (--n 50000, 200-node
+# block, 8,192 samples) fails its own envelope check after the churn: the
+# level-4 sample peel reads 9.36 against the survivors' exact 2.13.  The
+# port reproduces it to the bit (CPU JAX and the card); this is the ratio.
+CHURN_DEFAULT_RATIO = "4.386802852860957"
+# The reference's CI variant of the same example (.github/workflows/ci.yml).
+CHURN_CI_ARGS = ["--n", "4000", "--planted-k", "100", "--sample-edges", "2048"]
+
+
+def phase_examples() -> dict:
+    """``example.*``: the five examples at their default arguments on the
+    card (``mapreduce_stream``'s scratch in a temporary directory); each
+    asserts its own answers.  ``turnstile_churn`` at its defaults must fail
+    its envelope check with the reference's own ratio (the reference does,
+    ``CHURN_DEFAULT_RATIO``), then pass at the reference's CI arguments
+    with K3 launched once per update batch (6).  ``engine_matrix``
+    launches K1 (two pallas cells) and K2 (three sketch cells),
+    ``mapreduce_stream`` K2 (its sketch)."""
+    import tempfile
+
+    by_example = {}
+    with tempfile.TemporaryDirectory(prefix="example_scratch_") as scratch:
+        dev = ["--device", DEV]
+        runs = [("quickstart", []), ("directed_csweep", []), ("engine_matrix", []),
+                ("mapreduce_stream", ["--scratch", scratch]), ("turnstile_churn", None),
+                ("turnstile_churn.ci", CHURN_CI_ARGS)]
+        for name, argv in runs:
+            mod = _example(name.split(".")[0])
+            if argv is None:  # the defaults: the reference's own failure, to the bit
+                try:
+                    mod.main(dev)
+                except AssertionError as e:
+                    if f"after churn: ratio {CHURN_DEFAULT_RATIO} outside" not in str(e):
+                        raise
+                    log("example.turnstile_churn", defaults="fails its envelope check "
+                        "after churn with the reference's ratio", ratio=CHURN_DEFAULT_RATIO)
+                    continue
+                raise AssertionError("turnstile_churn at its defaults passed where the "
+                                     "reference fails")
+            _, launches, sec = _drive(f"example.{name}",
+                                      lambda mod=mod, argv=argv: mod.main(argv + dev))
+            by_example[name] = launches
+            log(f"example.{name}", seconds=round(sec, 3), launches=launches)
+    if by_example["turnstile_churn.ci"]["k3"] != 6 or by_example["engine_matrix"]["k1"] < 2:
+        raise AssertionError(f"example: launches {by_example}")
+    if by_example["engine_matrix"]["k2"] == 0 or by_example["mapreduce_stream"]["k2"] == 0:
+        raise AssertionError(f"example: no K2 launch {by_example}")
+    return {k: sum(v[k] for v in by_example.values()) for k in ("k1", "k2", "k3", "k4")}
+
+
 def main() -> int:
     import torch
 
@@ -2484,6 +2757,8 @@ def main() -> int:
     mesh, cpu_mesh = mesh_inputs()
     k2["launches_by_path"] = {"livejournal": k2["launches"],
                               **phase_mesh_livejournal(lj, ladder, lj_sketch, mesh)}
+    # Path 9 (its part that needs livejournal_md): the paper's tables.
+    path9 = {"bench.paper": phase_bench_paper(flickr, lj, mesh)}
     del lj, lj_sketch
     torch.cuda.empty_cache()
     phase_stream(lj_host, ladder, ladder_peak_mb, smi)
@@ -2505,9 +2780,20 @@ def main() -> int:
     phase_stream_flickr(flickr, flickr_cpu)
     phase_mesh_flickr(flickr, flickr_cpu, mesh, cpu_mesh)
     del flickr_cpu
+    # Path 9: the port's benchmarks at flickr_sm (K1, K2), on the mesh.
+    path9["bench.engine"] = phase_bench_engine(flickr)
+    path9["bench.peel"] = phase_bench_peel(flickr, mesh)
+    path9["bench.api"] = phase_bench_api(flickr)
     phase_build_cache()
     phase_golden_serve()
     del flickr
+    torch.cuda.empty_cache()
+    # Path 9: the benchmarks that draw their own graphs, and the examples.
+    path9["bench.stream"] = phase_bench_stream()
+    path9["bench.turnstile"] = phase_bench_turnstile()
+    path9["bench.serve"] = phase_bench_serve()
+    path9["bench.resilience"] = phase_bench_resilience()
+    path9["example"] = phase_examples()
     torch.cuda.empty_cache()
     phase_directed(mesh)
     torch.cuda.empty_cache()
@@ -2538,6 +2824,11 @@ def main() -> int:
 
     dist.destroy_process_group()
     log("done", seconds=round(time.perf_counter() - t_start, 3))
+    k1.setdefault("launches_by_path", {"flickr": k1["launches"]})
+    k3.setdefault("launches_by_path", {"turnstile": k3["launches"]})
+    for kern, key in ((k1, "k1"), (k2, "k2"), (k3, "k3")):
+        kern["launches_by_path"].update(
+            {path: n[key] for path, n in path9.items() if n[key]})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern}

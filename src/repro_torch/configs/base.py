@@ -13,7 +13,7 @@ class ShapeSpec:
     """One input-shape cell for an architecture."""
 
     name: str
-    kind: str  # train | prefill | decode | decode_long
+    kind: str  # train | prefill | decode | decode_long | peel | peel_sketched
     params: Mapping[str, Any]
     skip_reason: Optional[str] = None  # non-None => documented skip
 
@@ -21,7 +21,7 @@ class ShapeSpec:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str  # lm (the only family the port runs so far)
+    family: str  # lm | densest
     config: Any
     reduced_config: Any
     param_rules: Sequence[Tuple[str, Tuple[Optional[str], ...]]]

@@ -1,5 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution (counterpart of
-``repro.configs.registry``), over the archs the port runs."""
+``repro.configs.registry``), over the archs the port runs.
+
+``densest-mapreduce`` is registered for its shapes and config, which the
+benchmarks read; its launch dry-run waits for the port's launch layer
+(ROADMAP Queue 1 item 12), so ``repro_torch.launch`` has no ``dryrun``."""
 
 from __future__ import annotations
 
@@ -16,14 +20,13 @@ NOT_PORTED = {
     "graphsage-reddit": "the GNN family, ROADMAP Queue 1 item 12",
     "equiformer-v2": "the GNN family, ROADMAP Queue 1 item 12",
     "two-tower-retrieval": "the recsys family, ROADMAP Queue 1 item 12",
-    "densest-mapreduce": "the launch layer, ROADMAP Queue 1 item 12",
 }
 
 
 def all_archs() -> Dict[str, ArchSpec]:
-    from repro_torch.configs import llama3_2_3b, qwen2_72b, starcoder2_7b
+    from repro_torch.configs import densest_mapreduce, llama3_2_3b, qwen2_72b, starcoder2_7b
 
-    specs = [llama3_2_3b.SPEC, starcoder2_7b.SPEC, qwen2_72b.SPEC]
+    specs = [llama3_2_3b.SPEC, starcoder2_7b.SPEC, qwen2_72b.SPEC, densest_mapreduce.SPEC]
     return {s.arch_id: s for s in specs}
 
 

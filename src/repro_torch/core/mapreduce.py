@@ -30,9 +30,11 @@ is counted in :mod:`repro_torch.collectives`.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import datetime
 import os
+import weakref
 from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
@@ -83,7 +85,9 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device: Device = None):
     environment ``torchrun`` sets (``WORLD_SIZE``, ``RANK``, the store's
     address), or else a world of this one process over an in-memory store.
     A card world binds NCCL to the card (``device_id``) and runs gloo for
-    CPU tensors beside it; a CPU world runs gloo."""
+    CPU tensors beside it; a CPU world runs gloo.  A world started here is
+    destroyed when the interpreter exits (:func:`_teardown`), with every
+    group made in it; a world the caller started is the caller's to end."""
     dev = resolve_device(device)
     if not dist.is_initialized():
         backend = "gloo"
@@ -96,6 +100,7 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device: Device = None):
         if "WORLD_SIZE" not in os.environ:
             kw.update(store=dist.HashStore(), rank=0, world_size=1)
         dist.init_process_group(backend, **kw)
+        atexit.register(_teardown, weakref.ref(dist.group.WORLD))
     need = "nccl" if dev.type == "cuda" else "gloo"
     running = dist.get_backend()
     if need not in running:
@@ -104,8 +109,34 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device: Device = None):
         )
     from torch.distributed.device_mesh import init_device_mesh
 
-    return init_device_mesh(dev.type, tuple(int(s) for s in shape),
+    mesh = init_device_mesh(dev.type, tuple(int(s) for s in shape),
                             mesh_dim_names=tuple(axes))
+    _MESHES.append(weakref.ref(mesh))
+    return mesh
+
+
+# The meshes make_mesh returned (weak references), for the teardown.
+_MESHES: list = []
+
+
+def _teardown(world_ref) -> None:
+    """At exit: if the world :func:`make_mesh` started is still the running
+    one, destroy it with every group made in it, and drop the groups the
+    meshes hold (``edge_shards``' and the mesh's own ``_pg_registry``), so
+    that each group's C++ object and its gloo or NCCL threads are freed
+    here.  ``destroy_process_group`` only unregisters the groups: one the
+    user's mesh still holds outlives the interpreter, and its threads still
+    run while the C++ runtime tears down, which can abort the process
+    (``terminate called without an active exception``)."""
+    if not dist.is_initialized() or dist.group.WORLD is not world_ref():
+        return
+    for ref in _MESHES:
+        mesh = ref()
+        if mesh is not None:
+            mesh.__dict__.pop("_edge_shards", None)
+            getattr(mesh, "_pg_registry", {}).clear()
+    _MESHES.clear()
+    dist.destroy_process_group()
 
 
 def check_mesh_device(device: torch.device, mesh) -> None:

@@ -69,6 +69,69 @@ def chung_lu_power_law(
     return from_numpy(src, dst, n, device=device)
 
 
+def barabasi_albert(
+    n: int, m_attach: int = 4, seed: int = 0, *, device: Device = None,
+) -> EdgeList:
+    """Preferential attachment: node ``v`` links to ``m_attach`` distinct
+    endpoints drawn from the degree-weighted list of earlier endpoints."""
+    rng = np.random.default_rng(seed)
+    repeated: list[int] = list(range(m_attach))
+    src_l: list[int] = []
+    dst_l: list[int] = []
+    for v in range(m_attach, n):
+        chosen = rng.choice(np.asarray(repeated), size=m_attach, replace=False)
+        for t in set(int(c) for c in chosen):
+            src_l.append(v)
+            dst_l.append(t)
+            repeated.append(v)
+            repeated.append(t)
+    src, dst = dedup_edges(np.asarray(src_l), np.asarray(dst_l), directed=False)
+    return from_numpy(src, dst, n, device=device)
+
+
+def _regular_circulant(n: int, d: int, offset_nodes: int) -> Tuple[np.ndarray, np.ndarray]:
+    """A d-regular graph on n nodes (circulant; d=1 => perfect matching)."""
+    assert d < n
+    src_l = []
+    dst_l = []
+    if d == 1:
+        assert n % 2 == 0
+        a = np.arange(0, n, 2)
+        src_l.append(a)
+        dst_l.append(a + 1)
+    else:
+        assert d % 2 == 0 or n % 2 == 0
+        half = d // 2
+        a = np.arange(n)
+        for j in range(1, half + 1):
+            src_l.append(a)
+            dst_l.append((a + j) % n)
+        if d % 2 == 1:
+            a2 = np.arange(n // 2)
+            src_l.append(a2)
+            dst_l.append((a2 + n // 2) % n)
+    src = np.concatenate(src_l) + offset_nodes
+    dst = np.concatenate(dst_l) + offset_nodes
+    return src, dst
+
+
+def lemma5_instance(k: int, *, device: Device = None) -> EdgeList:
+    """The Lemma 5 pass-lower-bound instance: k disjoint subgraphs
+    G_1..G_k, G_i 2^{i-1}-regular on 2^{2k+1-i} nodes, each with 2^{2k-1}
+    edges.  Algorithm 1 needs Omega(k / log k) passes on it."""
+    srcs, dsts = [], []
+    offset = 0
+    for i in range(1, k + 1):
+        ni = 2 ** (2 * k + 1 - i)
+        di = 2 ** (i - 1)
+        s, d = _regular_circulant(ni, di, offset)
+        srcs.append(s)
+        dsts.append(d)
+        offset += ni
+    src, dst = dedup_edges(np.concatenate(srcs), np.concatenate(dsts), directed=False)
+    return from_numpy(src, dst, offset, device=device)
+
+
 def directed_planted(
     n: int, avg_deg: float, ks: int, kt: int, p_dense: float, seed: int = 0,
     *, device: Device = None,
@@ -118,3 +181,51 @@ def bipartite_spam(
     src, dst = dedup_edges(src, dst, directed=True)
     n = n_users + n_items
     return from_numpy(src, dst, n, directed=True, device=device), su, si
+
+
+def planted_partition(
+    n: int, k: int, p_in, p_out: float, seed: int = 0, *, device: Device = None,
+) -> Tuple[EdgeList, np.ndarray]:
+    """k equal communities: edge probability ``p_in`` inside (a scalar or one
+    per community; unequal densities make the peel extract them in order),
+    ``p_out`` across.  Each block's edge count is one binomial draw, so a
+    large n stays cheap.  Returns the graph and the labels ``int[n]``."""
+    rng = np.random.default_rng(seed)
+    labels = np.repeat(np.arange(k), n // k + 1)[:n]
+    p_in_list = [p_in] * k if np.isscalar(p_in) else list(p_in)
+    srcs, dsts = [], []
+    idx_of = [np.nonzero(labels == c)[0] for c in range(k)]
+    for a in range(k):
+        na = len(idx_of[a])
+        m_in = rng.binomial(na * (na - 1) // 2, p_in_list[a])
+        srcs.append(idx_of[a][rng.integers(0, na, m_in)])
+        dsts.append(idx_of[a][rng.integers(0, na, m_in)])
+        for b in range(a + 1, k):
+            nb = len(idx_of[b])
+            m_x = rng.binomial(na * nb, p_out)
+            srcs.append(idx_of[a][rng.integers(0, na, m_x)])
+            dsts.append(idx_of[b][rng.integers(0, nb, m_x)])
+    src, dst = dedup_edges(np.concatenate(srcs), np.concatenate(dsts), directed=False)
+    return from_numpy(src, dst, n, device=device), labels
+
+
+def weighted_preferential(n: int, seed: int = 0, *, device: Device = None) -> EdgeList:
+    """The deterministic weighted preferential-attachment graph of the
+    Lemma 6 proof sketch: node u links to every earlier v with weight
+    proportional to v's current weighted degree.  O(n^2) edges on the host;
+    ``seed`` is unused, as in the reference."""
+    deg = np.zeros(n, np.float64)
+    srcs, dsts, ws = [], [], []
+    deg[0] = deg[1] = 1.0
+    srcs.append(0)
+    dsts.append(1)
+    ws.append(1.0)
+    for u in range(2, n):
+        w_uv = deg[:u] / deg[:u].sum()
+        srcs.extend([u] * u)
+        dsts.extend(range(u))
+        ws.extend(w_uv.tolist())
+        deg[:u] += w_uv
+        deg[u] = w_uv.sum()
+    return from_numpy(np.asarray(srcs), np.asarray(dsts), n,
+                      weight=np.asarray(ws, np.float32), device=device)

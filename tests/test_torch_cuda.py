@@ -972,3 +972,69 @@ def test_mesh_bf16_wire_on_card_equals_cpu(card_meshes, compaction):
             eps=0.5, substrate="mesh", wire_dtype="bf16", compaction=compaction,
             track_history=True), mesh=mesh))
     _equal_results(*answers)
+
+
+# -- the port's benchmarks and the teardown of make_mesh's world, on the card ---
+
+
+def _bench(name):
+    import importlib
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    return importlib.import_module(f"benchmarks.torch_port.{name}")
+
+
+def test_bench_engine_on_card_launches_once_a_pass(cuda):
+    """``benchmarks.torch_port.bench_engine`` at a small n on the card: K1
+    launches once a pass of the pallas run, K2 once a pass of the sketch
+    run, and pallas == exact."""
+    mod = _bench("bench_engine")
+    rep = mod.run(mod.parse_args(["--n", "20000", "--out", ""]))
+    rows = {r["backend"]: r for r in rep["rows"]}
+    assert rep["device"]["name"] == torch.cuda.get_device_name()
+    for backend in ("pallas", "sketch"):
+        assert rows[backend]["kernel_launches"] == rows[backend]["passes"] > 0, backend
+    assert (rows["pallas"]["rho"], rows["pallas"]["passes"]) == (
+        rows["exact"]["rho"], rows["exact"]["passes"])
+
+
+def test_bench_api_on_card_loads_k1_and_equals_exact(cuda):
+    mod = _bench("bench_api")
+    rep = mod.run(mod.parse_args(["--n", "20000", "--grid", "3", "--repeats", "1",
+                                  "--out", ""]))
+    assert rep["kernel_load"]["library_loaded"] and rep["kernel_load"]["equal_to_exact"]
+    assert all(e for e, x in zip(rep["solve_batch"]["lane_equal_to_solve"],
+                                 rep["solve_batch"]["f32_exact"]) if x)
+
+
+def test_paper_kernels_row_on_card(cuda):
+    mod = _bench("paper_benches")
+    (row,) = mod.kernels(n=20_000, e=160_000, repeats=5)
+    assert row["equal_to_plain_and_index_add"] and row["timer"] == "cuda events"
+    assert row["kernel_launches"] == 3 + 5  # warm-up and timed launches
+
+
+def test_card_mesh_world_is_torn_down_at_exit(cuda):
+    """A fresh process that makes a card mesh (NCCL) and its edge groups,
+    solves on it and exits without destroying anything exits 0."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "from repro_torch.core import Problem, mapreduce, solve\n"
+        "from repro_torch.graph.generators import chung_lu_power_law\n"
+        "mesh = mapreduce.make_mesh((1,), ('data',))\n"
+        "mapreduce.edge_shards(mesh, ('data',))\n"
+        "g = chung_lu_power_law(20_000, seed=0, device='cuda')\n"
+        "r = solve(g, Problem.undirected(substrate='mesh'), mesh=mesh)\n"
+        "print('PASSES', r.passes)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    assert "PASSES" in proc.stdout and "terminate called" not in proc.stderr

@@ -19,7 +19,10 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 def _port_files():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     assert files
-    return files + [REPO / "chip_smoke.py"]
+    bench = sorted((REPO / "benchmarks" / "torch_port").glob("*.py"))
+    examples = sorted((REPO / "examples" / "torch_port").glob("*.py"))
+    assert bench and examples
+    return files + bench + examples + [REPO / "chip_smoke.py"]
 
 
 def _imported_roots(path: Path):
@@ -36,6 +39,32 @@ def _imported_roots(path: Path):
 def test_no_jax_or_reference_imports(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+    # ``benchmarks`` is both packages' root: the port's benchmarks import
+    # only ``benchmarks.torch_port``, never the reference's benchmarks.
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+        for name in names:
+            assert not name.startswith("benchmarks") or name.startswith(
+                "benchmarks.torch_port"), f"{path.relative_to(REPO)} imports {name}"
+
+
+def test_importing_the_port_benchmarks_loads_no_jax():
+    """The port's benchmarks, importable from the repository's root, load
+    neither JAX nor the JAX package."""
+    mods = [f"benchmarks.torch_port.{p.stem}"
+            for p in sorted((REPO / "benchmarks" / "torch_port").glob("*.py"))]
+    code = (
+        "import importlib, sys; "
+        f"[importlib.import_module(m) for m in {mods!r}]; "
+        "bad = [m for m in ('jax', 'jaxlib', 'repro', 'benchmarks.bench_engine') "
+        "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src") + os.pathsep + str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120, cwd=str(REPO))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 PORT_MODULES = (
@@ -55,6 +84,7 @@ PORT_MODULES = (
     "repro_torch.serve", "repro_torch.serve.densest", "repro_torch.serve.resilience",
     "repro_torch.serve.turnstile", "repro_torch.core.streaming", "repro_torch.graph.edgelist",
     "repro_torch.core.mapreduce", "repro_torch.collectives",
+    "repro_torch.configs.densest_mapreduce", "repro_torch.graph.generators",
 )
 
 

@@ -684,8 +684,12 @@ def test_four_ranks_meet_mesh_golden(four_ranks, case):
         assert o["golden"][case] == want
 
 
+# torchrun starts its workers with ``python -u``, so a ``print`` of several
+# arguments is several writes and the two ranks' lines interleave; each rank
+# writes its line in one call (a pipe write of under 4 KiB is atomic).
 _TORCHRUN_SCRIPT = """
 import os
+import sys
 from repro_torch.core import Problem, make_mesh, solve
 from repro_torch.core import mapreduce
 from repro_torch.graph.generators import planted_dense_subgraph
@@ -695,8 +699,9 @@ mapreduce.GROUP_TIMEOUT = datetime.timedelta(seconds=60)
 mesh = make_mesh((2,), ("data",), device="cpu")
 g, _ = planted_dense_subgraph(500, 4, 25, 0.8, seed=0, device="cpu")
 r = solve(g, Problem.undirected(eps=0.2, substrate="auto", track_history=True), mesh=mesh)
-print("RESULT", os.environ["RANK"], r.provenance.substrate, r.provenance.compaction, r.passes,
-      r.best_density.numpy().tobytes().hex(), r.nodes().tolist())
+sys.stdout.write(" ".join(str(x) for x in (
+    "RESULT", os.environ["RANK"], r.provenance.substrate, r.provenance.compaction, r.passes,
+    r.best_density.numpy().tobytes().hex(), r.nodes().tolist())) + "\\n")
 """
 
 
@@ -722,3 +727,71 @@ def test_torchrun_world_and_auto_substrate(tmp_path):
     assert int(passes) == want.passes
     assert rho == want.best_density.numpy().tobytes().hex()
     assert nodes == str(want.nodes().tolist())
+
+
+# ---------------------------------------------------------------------------
+# Teardown of the world make_mesh starts
+# ---------------------------------------------------------------------------
+
+# Runs after every exit handler registered after it (atexit is last in,
+# first out): what is left of the world and of the gloo threads then.
+_EXIT_OBSERVER = """
+import atexit, os
+import torch.distributed as dist
+{pre}
+def _observe():
+    names = []
+    for t in os.listdir("/proc/self/task"):
+        with open(f"/proc/self/task/{{t}}/comm") as f:
+            names.append(f.read().strip())
+    print("AT_EXIT", dist.is_initialized(), sum("gloo" in n for n in names), flush=True)
+
+atexit.register(_observe)
+from repro_torch.core import Problem, mapreduce, solve
+from repro_torch.graph.generators import planted_dense_subgraph
+g, _ = planted_dense_subgraph(200, 4, 20, 0.8, seed=0, device="cpu")
+{body}
+"""
+
+_EXIT_CASES = {
+    # make_mesh starts the world; the script destroys nothing.
+    "started_by_make_mesh": (
+        "",
+        "mesh = mapreduce.make_mesh((1,), ('data',), device='cpu')\n"
+        "mapreduce.edge_shards(mesh, ('data',))\n"
+        "r = solve(g, Problem.undirected(substrate='mesh'), mesh=mesh)\n",
+        "AT_EXIT False 0"),
+    # the caller starts the world (and ends it last): make_mesh leaves it.
+    "started_by_the_caller": (
+        "dist.init_process_group('gloo', store=dist.HashStore(), rank=0, world_size=1)\n"
+        "atexit.register(dist.destroy_process_group)\n",
+        "mesh = mapreduce.make_mesh((1,), ('data',), device='cpu')\n"
+        "mapreduce.edge_shards(mesh, ('data',))\n",
+        "AT_EXIT True"),
+    # the script destroys make_mesh's world, then make_mesh starts another.
+    "destroyed_then_restarted": (
+        "",
+        "mesh = mapreduce.make_mesh((1,), ('data',), device='cpu')\n"
+        "mapreduce.edge_shards(mesh, ('data',))\n"
+        "dist.destroy_process_group()\n"
+        "mesh = mapreduce.make_mesh((1,), ('data',), device='cpu')\n"
+        "r = solve(g, Problem.undirected(substrate='mesh'), mesh=mesh)\n",
+        "AT_EXIT False"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_EXIT_CASES))
+def test_make_mesh_world_is_torn_down_at_exit(case):
+    """A fresh interpreter that makes a mesh and its edge groups and exits
+    without destroying anything exits 0, with the world gone and no gloo
+    thread left running (a group still alive at exit can abort the process
+    after its work is done).  A world the caller started is left running
+    for the caller, and one that was already destroyed is left alone."""
+    pre, body, want = _EXIT_CASES[case]
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", _EXIT_OBSERVER.format(pre=pre, body=body)],
+                          env=env, capture_output=True, text=True, timeout=JOIN_S)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    assert "terminate called" not in proc.stderr
+    (line,) = [ln for ln in proc.stdout.splitlines() if ln.startswith("AT_EXIT")]
+    assert line.startswith(want), line
