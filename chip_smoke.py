@@ -5,7 +5,7 @@
 
 Builds the port's four CUDA kernels from the sources in this checkout (one
 ``nvcc`` each, all started together), holds each against its plain PyTorch
-version on the card, then drives the port's nine paths through the
+version on the card, then drives the port's ten paths through the
 entry points a user calls:
 
 * Algorithm 1 on the geometric ladder, ``solve(edges,
@@ -55,12 +55,19 @@ entry points a user calls:
 * the LM path at the full width of llama3.2-3b (28 layers, random weights
   from a seeded ``torch.Generator``): ``prefill`` of an 8,192-token prompt
   with ``attn_impl='pallas'`` (K4, flash attention, once per layer)
-  against ``'xla'``, and the ``ServeEngine`` answering 6 requests.
+  against ``'xla'``, and the ``ServeEngine`` answering 6 requests;
+* mixtral-8x7b at full width, 4 of its 32 layers (the MoE FFN: 8 experts,
+  top-2, capacity 1.25, groups of 1,024): ``prefill`` of an 8,192-token
+  prompt through K4's sliding window (4,096) against ``'xla'``, the MoE
+  share of its device time, the ``ServeEngine`` answering 4 requests at
+  capacity 8.0 (each answer against a full forward), and the drop share at
+  the config's own capacity.
 
 Answers are checked against the exact backend, the plain versions, the
 port on the CPU and the JAX package's golden fixture
 (tests/fixtures/torch_port/golden.json), the LM's against its ``'xla'``
-path, its full forward and the golden fixture's REDUCED-config entries.
+path, its full forward and the golden fixture's REDUCED-config entries (mixtral
+and llama4 among them).
 Any failed check raises, so the exit code is not 0.
 
 Output: the torch/CUDA versions and ``nvidia-smi``'s name and power limit
@@ -74,6 +81,7 @@ exits 2 and prints no result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -581,38 +589,67 @@ def _union_ms(intervals) -> float:
     return total / 1e3
 
 
-def phase_profile(label: str, run) -> None:
+def phase_profile(label: str, run, span=None, **extra) -> None:
     """Where one run's device time goes, by kernel name (torch.profiler),
     and the device's busy share of its wall time (the wall measured on a
     run without the profiler): ``device_busy_ms`` sums every activity's
     time, ``device_busy_union_ms`` counts time when activities on several
-    streams overlap once, and the idle share is taken from the union."""
+    streams overlap once, and the idle share is taken from the union.
+
+    ``span=(module, name)`` runs ``module.name`` inside
+    ``torch.profiler.record_function(name)`` during the profiled run and
+    reports the device time of the kernels launched inside the range
+    (``span_device_ms``, the range's device total in ``key_averages``) and
+    its share of ``device_busy_ms``.  ``extra`` is logged on the line (the card)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+    if span is not None:
+        module, name = span
+        real = getattr(module, name)
+
+        def annotated(*args, **kw):
+            with record_function(name):
+                return real(*args, **kw)
+
+        setattr(module, name, annotated)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        if span is not None:
+            setattr(module, name, real)
 
     def dev_us(ev):
         return getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0)
 
-    rows = [ev for ev in prof.key_averages() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    span_name = span[1] if span is not None else None  # its range on the device is no kernel
+    rows = [ev for ev in prof.key_averages() if ev.device_type == cuda and ev.key != span_name]
     busy_ms = sum(dev_us(ev) for ev in rows) / 1e3
     if busy_ms == 0:
         log("profile", run=label,
-            device_time="not measured (the profiler recorded no device events)", wall_ms=wall_ms)
+            device_time="not measured (the profiler recorded no device events)", wall_ms=wall_ms,
+            **extra)
         return
     union_ms = _union_ms((ev.time_range.start, ev.time_range.end) for ev in prof.events()
-                         if ev.device_type == torch.autograd.DeviceType.CUDA)
-    log("profile", run=label, wall_ms=wall_ms, device_busy_ms=busy_ms,
-        device_busy_union_ms=union_ms, device_busy_share=union_ms / wall_ms,
-        device_idle_share=1 - union_ms / wall_ms)
+                         if ev.device_type == cuda and ev.name != span_name)
+    out = dict(wall_ms=wall_ms, device_busy_ms=busy_ms, device_busy_union_ms=union_ms,
+               device_busy_share=union_ms / wall_ms, device_idle_share=1 - union_ms / wall_ms)
+    if span is not None:
+        host = [ev for ev in prof.key_averages() if ev.key == span_name and ev.device_type != cuda]
+        span_ms = sum(getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+                      for ev in host) / 1e3
+        out.update(span=span_name, span_calls=sum(ev.count for ev in host),
+                   span_device_ms=span_ms or "not measured",
+                   span_share_of_busy=span_ms / busy_ms if span_ms else "not measured")
+    log("profile", run=label, **out, **extra)
     for ev in sorted(rows, key=dev_us, reverse=True)[:15]:
         print(f"  {dev_us(ev) / 1e3:9.4f} ms  x{ev.count:<4d} {ev.key[:110]}", flush=True)
 
@@ -2096,8 +2133,8 @@ def phase_golden_objectives() -> None:
 # K4's shapes: the reference's kernel tests, then the main path's (B=1, an
 # 8,192-token prompt, 24/8 heads, D=128, bf16), a ragged length, mixtral's
 # window, kv positions that are not an arange (a stride of 3, with a
-# window of 3 * 1,000 positions), and D=64 at a length that is not a
-# multiple of the 128-key tile.  (B, S, Hq, Hkv, D, window, dtype, stride
+# window of 3 * 1,000 positions), D=64 at a length that is not a multiple
+# of the 128-key tile, and path 10's (mixtral: 32/8 heads, window 4,096).  (B, S, Hq, Hkv, D, window, dtype, stride
 # of the positions)
 FLASH_CASES = [
     (2, 256, 4, 4, 64, None, "float32", 1), (1, 256, 8, 2, 64, None, "float32", 1),
@@ -2105,7 +2142,7 @@ FLASH_CASES = [
     (1, 256, 4, 4, 64, None, "bfloat16", 1),
     (1, 8192, 24, 8, 128, None, "bfloat16", 1), (1, 8000, 24, 8, 128, None, "bfloat16", 1),
     (1, 8192, 24, 8, 128, 4096, "bfloat16", 1), (1, 4096, 24, 8, 128, 3000, "bfloat16", 3),
-    (2, 1000, 16, 4, 64, None, "bfloat16", 1),
+    (2, 1000, 16, 4, 64, None, "bfloat16", 1), (1, 8192, 32, 8, 128, 4096, "bfloat16", 1),
 ]
 # K4 against its plain version, two limits.  Elementwise, rtol = atol =
 # the reference tests' own (2e-5 f32, 2e-2 bf16): at the main shape a late
@@ -2197,7 +2234,7 @@ def flash_errors(got, want, dtype: str) -> dict:
                 max_abs_err=err.max().item(), max_row_rel_err=row.max().item())
 
 
-def phase_flash_kernel() -> dict:
+def phase_flash_kernel(smi: str) -> dict:
     """K4 against its plain version on the card, within FLASH_TOL
     (elementwise) and FLASH_ROW_TOL (per row); in every case three controls
     (:func:`flash_controls`) must fail those limits.  Then K4's time at
@@ -2266,6 +2303,26 @@ def phase_flash_kernel() -> dict:
             plan_ms=plan_ms, vs_sdpa=ms / library_ms)
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
+    # Path 10's shape: mixtral's 32/8 heads and window of 4,096 at 8,192
+    # tokens; the library call is SDPA with the window as a boolean mask.
+    window = moe_config().window
+    q, k, v, pos = _flash_inputs(1, MOE_PROMPT, 32, 8, d, "bfloat16", seed=10)
+    ms = time_ms(lambda: flash_attention(q, k, v, q_positions=pos, kv_positions=pos,
+                                         window=window))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), n=5)
+    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, pos, pos, window=window), n=5,
+                       warmup=1)
+    pairs = flash_pairs(pos, pos, window)
+    bound_ms, bound_by = flash_bound_ms(q, k, pairs)
+    log("flash.time", seq=MOE_PROMPT, heads="32/8", window=window, kernel_ms=ms,
+        plain_ms=plain_ms, library_ms_sdpa_masked=library_ms, bound_ms=bound_ms,
+        bound_by=bound_by, allowed_pairs_per_head=pairs, roofline_share=bound_ms / ms,
+        tflops=4.0 * d * 32 * pairs / ms / 1e9, vs_sdpa=ms / library_ms, card=smi)
+    del q, k, v, qt, kt, vt, mask
+    torch.cuda.empty_cache()
     main = timed[LM_PROMPT]
     return {
         "name": "flash_attention",
@@ -2277,6 +2334,8 @@ def phase_flash_kernel() -> dict:
         "ms_32768": timed[4 * LM_PROMPT]["ms"],
         "library_ms_32768": timed[4 * LM_PROMPT]["library_ms"],
         "bound_ms_32768": timed[4 * LM_PROMPT]["bound_ms"],
+        "moe_window": dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                           bound_by=bound_by),
     }
 
 
@@ -2287,11 +2346,37 @@ def lm_config(**kw):
     return dataclasses.replace(get_arch("llama3.2-3b").config, remat=False, **kw)
 
 
-def _row_rel_err(got, want) -> float:
-    """Largest relative L2 error of one position's K (or V) row, over every
-    layer, position and kv head."""
+def _row_rel_errs(got, want):
+    """Each cached position's relative L2 error of its K (or V) row (every
+    layer, position and kv head), as one flat tensor."""
     g, w = got.float(), want.float()
-    return ((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)).max().item()
+    return ((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)).reshape(-1)
+
+
+def _row_rel_err(got, want) -> float:
+    """The largest of :func:`_row_rel_errs`."""
+    return _row_rel_errs(got, want).max().item()
+
+
+@contextlib.contextmanager
+def _layer0_without_diagonal():
+    """The control of the prefill checks: the model's first attention call
+    runs with its diagonal dropped from the mask (kpos < qpos)."""
+    from repro_torch.models import transformer
+
+    real, calls = transformer.gqa_attention, []
+
+    def no_diagonal_in_layer0(q, k, v, *, q_positions, kv_positions, **kw):
+        calls.append(1)
+        if len(calls) == 1:
+            kv_positions = kv_positions + 1  # kpos + 1 <= qpos: kpos < qpos
+        return real(q, k, v, q_positions=q_positions, kv_positions=kv_positions, **kw)
+
+    transformer.gqa_attention = no_diagonal_in_layer0
+    try:
+        yield
+    finally:
+        transformer.gqa_attention = real
 
 
 # The pallas prefill against the xla prefill of the same weights, bf16.
@@ -2329,20 +2414,8 @@ def phase_lm_prefill(params, tokens) -> dict:
     (lp, cp, launches), (lx, cx, _) = runs["pallas"], runs["xla"]
 
     # The control: the xla prefill with layer 0's mask missing its diagonal.
-    real = transformer.gqa_attention
-    calls = []
-
-    def no_diagonal_in_layer0(q, k, v, *, q_positions, kv_positions, **kw):
-        calls.append(1)
-        if len(calls) == 1:
-            kv_positions = kv_positions + 1  # kpos + 1 <= qpos: kpos < qpos
-        return real(q, k, v, q_positions=q_positions, kv_positions=kv_positions, **kw)
-
-    transformer.gqa_attention = no_diagonal_in_layer0
-    try:
+    with _layer0_without_diagonal():
         lc, cc, _ = transformer.prefill(params, lm_config(attn_impl="xla"), tokens)
-    finally:
-        transformer.gqa_attention = real
 
     layer0_equal = all(torch.equal(cp[key][0], cx[key][0]) for key in ("k", "v"))
     cache_err = max(_row_rel_err(cp[key], cx[key]) for key in ("k", "v"))
@@ -2450,6 +2523,308 @@ def phase_lm_golden() -> None:
             raise AssertionError(f"lm golden {case}: {bad or 'K4 never launched'}")
         log("golden", lm_case=case, equal=f"JAX golden (tokens; logits rtol=atol="
             f"{golden.LM_LOGITS_TOL})", tokens=got["tokens"])
+
+
+# -- Path 10: mixtral-8x7b at full width, the MoE FFN and K4's sliding window --
+
+MOE_LAYERS = 4  # of 32: 1.45 B parameters (5.8 GB in f32) a layer
+MOE_PROMPT = 8192  # twice the window: 8 MoE groups of 1,024
+MOE_SERVE_PROMPTS = (256, 512, 1024, 2048)  # above a group: multiples of it
+MOE_SERVE_NEW = 16
+MOE_SERVE_CAPACITY = 8.0  # the reference's consistency test's: no token drops
+
+
+def moe_config(**kw):
+    """mixtral-8x7b at full width (src/repro/configs/mixtral_8x7b.py), its
+    first MOE_LAYERS layers."""
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch("mixtral-8x7b").config, n_layers=MOE_LAYERS,
+                               remat=False, **kw)
+
+
+def _moe_capacity(cfg, factor):
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=factor))
+
+
+class _MoERecorder:
+    """Wraps ``transformer.moe_apply`` (the name ``_ffn_block`` calls) and
+    keeps each call's drop share and top-k experts (recomputed from its
+    input and router, as ``moe_apply`` routes).  With ``pin`` (the routes
+    of an earlier run, one a call) it also replaces ``moe.top_k`` so that
+    each call routes every token to the pinned experts, weighted by this
+    run's own router probabilities: two runs then dispatch alike, and
+    differ only by their arithmetic."""
+
+    def __init__(self, pin=None):
+        from repro_torch.models import moe, transformer
+
+        self.transformer, self.moe_module = transformer, moe
+        self.real, self.real_top_k = transformer.moe_apply, moe.top_k
+        self.pin, self.drops, self.routes = pin, [], []
+
+    def __enter__(self):
+        import torch
+
+        top_k, calls = self.real_top_k, []
+
+        def recorded(p, cfg, x, compute_dtype):
+            y, aux = self.real(p, cfg, x, compute_dtype)
+            logits = x.reshape(-1, x.shape[-1]).float() @ p["router"]["w"].float()
+            self.routes.append(top_k(torch.softmax(logits, -1), cfg.top_k)[1])
+            self.drops.append(aux["moe_drop_frac"])
+            return y, aux
+
+        def pinned(probs, k):
+            idx = self.pin[len(calls)].reshape(*probs.shape[:-1], k)
+            calls.append(1)
+            return probs.gather(-1, idx), idx
+
+        self.transformer.moe_apply = recorded
+        if self.pin is not None:
+            self.moe_module.top_k = pinned
+        return self
+
+    def __exit__(self, *exc):
+        self.transformer.moe_apply = self.real
+        self.moe_module.top_k = self.real_top_k
+
+    def drop_fracs(self):
+        return [float(d) for d in self.drops]
+
+
+# The pinned mixtral prefill against the xla prefill, bf16, 4 layers.  A
+# sound pallas prefill reads cache 0.0250 / logits 0.0388 and a model whose
+# layer 0 drops its diagonal 0.0764 / 0.0918 (PERF.md); the limits sit
+# between, and that model must fail them.
+MOE_CACHE_REL_TOL = 0.05
+MOE_LOGITS_TOL = 0.065
+
+
+def phase_moe_prefill(params, tokens, smi: str) -> dict:
+    """mixtral-8x7b, MOE_LAYERS layers at full width, one 8,192-token prompt
+    in bf16 at the config's own capacity (1.25): ``prefill`` with
+    ``attn_impl='pallas'`` (K4's windowed route, window 4,096, once a layer,
+    counted) against ``'xla'``, same weights.  Each wall is a run with no
+    instrumentation; the routes and drop shares come from a second, untimed
+    run (:class:`_MoERecorder`).
+
+    Run free, the two routes send some tokens to other experts: K4 and the
+    xla path round p to bf16 at other points, the router reads the bf16
+    residual, and a token near a tie between two experts moves; in the
+    layers after, its K/V differ by a whole expert's output.  The free
+    runs' routing differences, drop shares and logits are printed.
+
+    The checks run on a pallas prefill whose routing is pinned to the xla
+    run's.  In it, each layer's K4 output is held to K4's limits (FLASH_TOL,
+    FLASH_ROW_TOL) against its plain version and against the xla attention
+    on the same q, k, v, and at layer 0 the three K4 controls
+    (:func:`flash_controls`) must fail them.  Then the model: layer 0's
+    cache bitwise, the cache and logits within MOE_CACHE_REL_TOL and
+    MOE_LOGITS_TOL, which a model whose layer 0 drops its diagonal (routing
+    pinned alike) must exceed, and the greedy token where the margin
+    exceeds the logits limit."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import KV_TILE_BF16, flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import transformer
+
+    def run(impl, label):
+        cfg = moe_config(attn_impl=impl)
+        flash_attention.launches = 0
+        (logits, cache, _), wall, _, peak = _peak_run(
+            lambda: transformer.prefill(params, cfg, tokens))
+        launches = flash_attention.launches
+        if launches != (cfg.n_layers if impl == "pallas" else 0):
+            raise AssertionError(f"{impl} prefill: {launches} K4 launches, {cfg.n_layers} layers")
+        with _MoERecorder() as rec:
+            transformer.prefill(params, cfg, tokens)
+        log("moe.prefill", impl=impl, run=label, prompt=tokens.shape[1], window=cfg.window,
+            wall_ms=wall, k4_launches=launches, peak_above_weights_mb=peak,
+            peak_device_mb=torch.cuda.max_memory_allocated() / 2**20,
+            moe_drop_frac_per_layer=rec.drop_fracs(), greedy=int(logits.argmax()), card=smi)
+        return logits, cache, launches, rec
+
+    lp, cp, launches, rec_p = run("pallas", "free")
+    lx, cx, _, rec_x = run("xla", "free")
+    run("pallas", "free, second")
+    run("xla", "free, second")
+    routed_apart = [int((a != b).any(-1).sum()) for a, b in zip(rec_p.routes, rec_x.routes)]
+    free_rows = torch.cat([_row_rel_errs(cp[key], cx[key]) for key in ("k", "v")])
+    log("moe.prefill", free_runs="pallas vs xla, each routing its own tokens",
+        tokens_routed_apart_per_layer=routed_apart, of_tokens=tokens.shape[1],
+        cache_row_rel_err_p99=torch.quantile(free_rows, 0.99).item(),
+        cache_row_rel_err_max=free_rows.max().item(),
+        logits_max_abs_err=(lp - lx).abs().max().item(), card=smi)
+
+    real = transformer.gqa_attention
+    layers, failures = [], []
+
+    def checked(q, k, v, *, q_positions, kv_positions, window=None, impl="xla", **kw):
+        out = real(q, k, v, q_positions=q_positions, kv_positions=kv_positions, window=window,
+                   impl=impl, **kw)
+        if impl == "pallas":
+            got = out.float()
+            want = flash_attention_ref(q, k, v, q_positions, kv_positions, window=window).float()
+            xla = real(q, k, v, q_positions=q_positions, kv_positions=kv_positions,
+                       window=window, impl="xla", **kw).float()
+            layer = dict(vs_plain=flash_errors(got, want, "bfloat16"),
+                         vs_xla=flash_errors(got, xla, "bfloat16"))
+            if not layers:
+                layer["controls"] = {
+                    name: flash_errors(c, want, "bfloat16") for name, c in flash_controls(
+                        q, k, v, q_positions, kv_positions, window, want, KV_TILE_BF16).items()}
+            log("moe.k4", layer=len(layers), tolerance=f"rtol=atol={FLASH_TOL['bfloat16']}, "
+                f"row {FLASH_ROW_TOL['bfloat16']}", **layer, card=smi)
+            for name, e in layer.items():
+                if name != "controls" and (e["outside"] or e["rows_outside"]):
+                    failures.append(f"layer {len(layers)} K4 {name}: {e}")
+            for name, e in layer.get("controls", {}).items():
+                if not (e["outside"] or e["rows_outside"]):
+                    failures.append(f"the {name} control passes K4's limits")
+            layers.append(layer)
+        return out
+
+    transformer.gqa_attention = checked
+    try:
+        with _MoERecorder(rec_x.routes):
+            lp, cp, _ = transformer.prefill(params, moe_config(attn_impl="pallas"), tokens)
+    finally:
+        transformer.gqa_attention = real
+    if len(layers) != moe_config().n_layers or failures:
+        raise AssertionError(f"K4 in the served model: {len(layers)} layers; {failures}")
+
+    with _layer0_without_diagonal(), _MoERecorder(rec_x.routes):
+        lc, cc, _ = transformer.prefill(params, moe_config(attn_impl="xla"), tokens)
+
+    layer0_equal = all(torch.equal(cp[key][0], cx[key][0]) for key in ("k", "v"))
+    cache_err = max(_row_rel_err(cp[key], cx[key]) for key in ("k", "v"))
+    ctrl_cache_err = max(_row_rel_err(cc[key], cx[key]) for key in ("k", "v"))
+    logits_err = (lp - lx).abs().max().item()
+    ctrl_logits_err = (lc - lx).abs().max().item()
+    top2 = torch.topk(lx[0], 2).values
+    margin = (top2[0] - top2[1]).item()
+    same_greedy = int(lp.argmax()) == int(lx.argmax())
+    log("moe.prefill", pinned="pallas with the xla run's routing vs xla",
+        layer0_cache="bitwise equal" if layer0_equal else "DIFFERS",
+        cache_row_rel_err=cache_err, cache_tol=MOE_CACHE_REL_TOL, logits_max_abs_err=logits_err,
+        logits_tol=MOE_LOGITS_TOL, no_diagonal_model_cache_row_rel_err=ctrl_cache_err,
+        no_diagonal_model_logits_max_abs_err=ctrl_logits_err,
+        logits_std=lx.std().item(), greedy_pallas=int(lp.argmax()), greedy_xla=int(lx.argmax()),
+        xla_top1_top2_margin=margin,
+        greedy="equal" if same_greedy else
+        ("DIFFERS" if margin > MOE_LOGITS_TOL else "differs at a near tie (margin <= logits_tol)"),
+        card=smi)
+    if not layer0_equal:
+        raise AssertionError("layer 0's K/V cache differs: it is computed before any attention")
+    if cache_err > MOE_CACHE_REL_TOL or logits_err > MOE_LOGITS_TOL:
+        raise AssertionError(f"pallas vs xla prefill: cache {cache_err}, logits {logits_err}")
+    if ctrl_cache_err <= MOE_CACHE_REL_TOL or ctrl_logits_err <= MOE_LOGITS_TOL:
+        raise AssertionError(f"the no-diagonal model passes a check (cache {ctrl_cache_err}, "
+                             f"logits {ctrl_logits_err})")
+    if not same_greedy and margin > MOE_LOGITS_TOL:
+        raise AssertionError(f"the greedy token differs between the pallas and xla prefill "
+                             f"at a top-1/top-2 margin of {margin}")
+    return {"launches": launches, "moe_drop_frac": rec_p.drop_fracs()}
+
+
+def _forward_chain(params, cfg, prompt, answer):
+    """The argmax chain of one full ``forward`` over the prompt and the
+    answer's first tokens (teacher-forced: the argmax at each new position
+    must be the next token), and its top-1/top-2 margins.  The sequence is
+    padded with token 0 to a multiple of the MoE group, as the reference's
+    group assertion needs: attention is causal and the capacity drops
+    nothing, so no position read depends on the padding."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.transformer import forward
+
+    seq = np.concatenate([prompt, np.asarray(answer[:-1], np.int32)])
+    gs = cfg.moe.group_size
+    n = len(seq) if len(seq) <= gs else -(-len(seq) // gs) * gs
+    padded = np.zeros(n, np.int64)
+    padded[:len(seq)] = seq
+    logits, _ = forward(params, cfg, torch.as_tensor(padded, device=DEV)[None])
+    new = logits[0, len(prompt) - 1:len(seq)]
+    top2 = torch.topk(new, 2, dim=-1).values
+    return new.argmax(-1).tolist(), (top2[:, 0] - top2[:, 1]).min().item(), n
+
+
+def phase_moe_serve(params, smi: str) -> dict:
+    """``ServeEngine`` over mixtral at full width, ``attn_impl='xla'``,
+    float32 compute, capacity 8.0: 4 slots, prompts of 256-2,048 tokens, 16
+    new tokens each.  Every answer equals the argmax chain of one full
+    forward (:func:`_forward_chain`).  Then each prompt's drop share at the
+    config's own capacity (1.25), from a float32 forward."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.transformer import forward
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = _moe_capacity(moe_config(attn_impl="xla", compute_dtype=torch.float32),
+                        MOE_SERVE_CAPACITY)
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32) for n in MOE_SERVE_PROMPTS]
+    eng = ServeEngine(params, cfg, n_slots=len(prompts), device=DEV)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new=MOE_SERVE_NEW))
+    done, decode_ms = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        admits = bool(eng.queue) and any(r is None for r in eng.slot_req)
+        t1 = time.perf_counter()
+        done.extend(eng.step())  # ends in the sampler's copy to the host
+        if not admits:
+            decode_ms.append((time.perf_counter() - t1) * 1e3)
+    wall = time.perf_counter() - t0
+    tokens = sum(len(r.tokens) for r in done)
+    log("moe.serve", requests=len(done), prompt_lens=list(MOE_SERVE_PROMPTS),
+        capacity_factor=MOE_SERVE_CAPACITY, generated_tokens=tokens, wall_s=wall,
+        tokens_per_s=tokens / wall, decode_steps=len(decode_ms),
+        median_decode_step_ms=float(np.median(decode_ms)),
+        peak_device_mb=torch.cuda.max_memory_allocated() / 2**20, card=smi)
+    if len(done) != len(prompts) or any(len(r.tokens) != MOE_SERVE_NEW for r in done):
+        raise AssertionError(f"{len(done)} of {len(prompts)} requests answered")
+    for req in sorted(done, key=lambda r: r.rid):
+        chain, margin, n = _forward_chain(params, cfg, req.prompt, req.tokens)
+        log("moe.serve", rid=req.rid, prompt=len(req.prompt), forward_len=n,
+            engine_tokens=req.tokens, forward_argmax_chain=chain, least_top1_top2_margin=margin,
+            equal=chain == req.tokens, card=smi)
+        if chain != req.tokens:
+            raise AssertionError(f"request {req.rid}: engine {req.tokens} != forward {chain}")
+    own = _moe_capacity(cfg, moe_config().moe.capacity_factor)
+    for p in prompts:
+        with _MoERecorder() as rec:
+            forward(params, own, torch.as_tensor(p, device=DEV)[None])
+        log("moe.serve", prompt=len(p), capacity_factor=own.moe.capacity_factor,
+            moe_drop_frac_per_layer=rec.drop_fracs(), card=smi)
+    return {"wall_s": wall}
+
+
+def phase_moe_golden(smi: str) -> None:
+    """The REDUCED mixtral-8x7b and llama4 on the card (float32 compute)
+    meet the JAX golden fixture: the forward's digest, moe_loss, each
+    layer's drop share at the config's capacity, prefill logits through K4,
+    the engine's greedy tokens and their margins."""
+    import torch_port_golden as golden
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    with open(golden.GOLDEN) as f:
+        fixture = json.load(f)["lm_moe"]["answers"]
+    for arch in golden.LM_MOE_ARCHS:
+        before = flash_attention.launches
+        got = golden.port_lm_moe_entry(arch, DEV)
+        bad = golden.lm_moe_mismatch(got, fixture[arch])
+        if bad or flash_attention.launches == before:
+            raise AssertionError(f"moe golden {arch}: {bad or 'K4 never launched'}")
+        log("golden", lm_moe_arch=arch, equal=f"JAX golden (tokens, drop shares; floats "
+            f"rtol=atol={golden.LM_LOGITS_TOL})", tokens=got["tokens"],
+            moe_drop_frac=got["moe_drop_frac"], card=smi)
 
 
 # -- Path 9: the port's benchmarks and examples (benchmarks/torch_port/,
@@ -2803,7 +3178,7 @@ def main() -> int:
     # Path 4: the LM at full width through K4 (llama3.2-3b).
     from repro_torch.models.transformer import init_params, prefill
 
-    k4 = phase_flash_kernel()
+    k4 = phase_flash_kernel(smi)
     t0 = time.perf_counter()
     params = init_params(lm_config(), torch.Generator(device=DEV).manual_seed(0), DEV)
     tokens = torch.randint(0, lm_config().vocab, (1, LM_PROMPT), device=DEV,
@@ -2820,6 +3195,29 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     phase_lm_golden()
+    # Path 10: mixtral-8x7b at full width (depth cut), the MoE FFN and K4's
+    # sliding window.
+    from repro_torch.models import transformer
+
+    t0 = time.perf_counter()
+    params = init_params(moe_config(), torch.Generator(device=DEV).manual_seed(0), DEV)
+    tokens = torch.randint(0, moe_config().vocab, (1, MOE_PROMPT), device=DEV,
+                           generator=torch.Generator(device=DEV).manual_seed(1))
+    torch.cuda.synchronize()
+    log("moe.model", arch="mixtral-8x7b", layers=MOE_LAYERS,
+        reduced=f"depth: {MOE_LAYERS} of 32 layers (widths, experts, window and vocab as "
+                "published)", params=moe_config().param_count(),
+        weights_mb=torch.cuda.memory_allocated() / 2**20,
+        init_seconds=round(time.perf_counter() - t0, 3), card=smi)
+    k4_moe = phase_moe_prefill(params, tokens, smi)
+    phase_profile("mixtral_prefill_pallas",
+                  lambda: prefill(params, moe_config(attn_impl="pallas"), tokens),
+                  span=(transformer, "moe_apply"), card=smi)
+    phase_moe_serve(params, smi)
+    del params, tokens
+    torch.cuda.empty_cache()
+    phase_moe_golden(smi)
+    k4["launches_by_path"] = {"lm.prefill": k4["launches"], "moe.prefill": k4_moe["launches"]}
     import torch.distributed as dist
 
     dist.destroy_process_group()
@@ -2830,7 +3228,7 @@ def main() -> int:
         kern["launches_by_path"].update(
             {path: n[key] for path, n in path9.items() if n[key]})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path", "moe_window")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern}
                                   for kern in (k1, k2, k3, k4)]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -41,6 +41,14 @@ the top-1/top-2 logit margin of each of those tokens under a full
 ``forward`` of the prompt and the tokens before it: a margin far above the
 logits' tolerance means no rounding on the card can flip the token.
 
+The ``lm_moe`` section holds the same records for the REDUCED mixtral-8x7b
+and llama4-maverick-400b-a17b (one case each, :data:`LM_MOE_CASE`: prompts
+of 16 and 48 tokens, whose least margin is far above the tolerance), plus a
+digest of one ``forward`` over a seeded 2 x 64 batch at the config's own
+capacity, where tokens drop: each row's last-position logits, each
+position's largest logit, ``moe_loss`` and each layer's ``moe_drop_frac``
+(from the layers run one by one, whose ``_ffn_block`` returns the MoE aux).
+
 The ``serve`` section holds per-seed serving on the two graphs, each case
 named ``<kind>.<graph>``: ``engine.bfs`` and ``engine.local`` are the
 reference ``DensestQueryEngine``'s answers (radius 1, 128 ego nodes, 16
@@ -656,6 +664,138 @@ def lm_mismatch(got: dict, want: dict, tol: float = LM_LOGITS_TOL):
     return None
 
 
+# -- the MoE LM entries (REDUCED mixtral-8x7b and llama4, float32 compute) ----
+
+LM_MOE_ARCHS = ("mixtral-8x7b", "llama4-maverick-400b-a17b")
+LM_MOE_CASE = dict(forward_shape=(2, 64), prompt_lens=(16, 48), max_new=6, n_slots=2,
+                   max_len=64)
+
+
+def lm_moe_tokens() -> np.ndarray:
+    """The forward batch: 2 x 64 tokens, two MoE groups of the REDUCED
+    configs' 64, at their own capacity (tokens drop)."""
+    return np.random.default_rng(2).integers(0, 512, LM_MOE_CASE["forward_shape"],
+                                             dtype=np.int32)
+
+
+def lm_moe_record(logits, moe_loss, drop_fracs, prefill_logits, tokens, margins) -> dict:
+    """``lm_record`` plus the forward's digest: each row's last-position
+    logits and each position's largest logit (within the logits' tolerance
+    whenever every logit is), the summed ``moe_aux + moe_z`` and each
+    layer's ``moe_drop_frac``."""
+    logits = np.asarray(logits, np.float32)
+    rec = lm_record(prefill_logits, tokens, margins)
+    rec.update({
+        "forward_last_logits": [[float(x) for x in row[-1]] for row in logits],
+        "forward_row_max": [[float(x) for x in row.max(-1)] for row in logits],
+        "moe_loss": float(moe_loss),
+        "moe_drop_frac": [float(d) for d in drop_fracs],
+    })
+    return rec
+
+
+def reference_lm_moe_entry(arch: str) -> dict:
+    """One MoE entry, computed by the JAX package: the forward batch (and its
+    layers one by one, whose ``_ffn_block`` returns the MoE aux), prefill
+    under pallas, the engine's greedy chain and its margins."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_arch
+    from repro.models.transformer import _attention_block, _ffn_block, forward, prefill
+    from repro.serve.engine import Request, ServeEngine
+    from repro_torch.configs import get_arch as port_arch
+
+    case = LM_MOE_CASE
+    base = dataclasses.replace(get_arch(arch).reduced_config, remat=False,
+                               compute_dtype=jnp.float32)
+    params = jax.tree.map(jnp.asarray, lm_params(port_arch(arch).reduced_config))
+    toks = jnp.asarray(lm_moe_tokens())
+    logits, moe_loss = forward(params, base, toks)
+    x = jnp.take(params["embed"]["w"], toks, axis=0).astype(base.compute_dtype)
+    positions = jnp.arange(toks.shape[1], dtype=jnp.int32)
+    drops = []
+    for i in range(base.n_layers):
+        p = jax.tree.map(lambda a: a[i], params["layers"])
+        x, _, _ = _attention_block(base, p, x, positions)
+        x, aux = _ffn_block(base, p, x)
+        drops.append(aux["moe_drop_frac"])
+    prompts = lm_prompts(case)
+    pallas = dataclasses.replace(base, attn_impl="pallas")
+    pre = [prefill(params, pallas, jnp.asarray(p)[None])[0][0] for p in prompts]
+    eng = ServeEngine(params, base, n_slots=case["n_slots"], max_len=case["max_len"])
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new=case["max_new"]))
+    done = sorted(eng.run_to_completion(), key=lambda r: r.rid)
+    margins = []
+    for p, r in zip(prompts, done):
+        seq = np.concatenate([p, np.asarray(r.tokens[:-1], np.int32)])
+        lg = np.asarray(forward(params, base, jnp.asarray(seq)[None])[0][0])
+        margins.append([_margin(lg[len(p) - 1 + j]) for j in range(len(r.tokens))])
+    return lm_moe_record(logits, moe_loss, drops, pre, [r.tokens for r in done], margins)
+
+
+def port_lm_moe_entry(arch: str, device) -> dict:
+    """The port's answer for one MoE entry on ``device``, in the fixture's
+    form (margins from the port's own forward)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    case = LM_MOE_CASE
+    base = dataclasses.replace(get_arch(arch).reduced_config, remat=False,
+                               compute_dtype=torch.float32)
+    params = tf.params_from_reference(lm_params(base), base, device)
+    toks = torch.as_tensor(lm_moe_tokens(), device=device)
+    logits, moe_loss = tf.forward(params, base, toks)
+    drops = []
+    with torch.inference_mode():
+        x = tf._embed(base, params, toks)
+        positions = torch.arange(toks.shape[1], dtype=torch.int32, device=device)
+        for i in range(base.n_layers):
+            p = tf.layer_params(params, i)
+            x, _, _ = tf._attention_block(base, p, x, positions)
+            x, aux = tf._ffn_block(base, p, x)
+            drops.append(aux["moe_drop_frac"].item())
+    prompts = lm_prompts(case)
+    pallas = dataclasses.replace(base, attn_impl="pallas")
+    pre = [tf.prefill(params, pallas, torch.as_tensor(p, device=device)[None])[0][0].cpu()
+           for p in prompts]
+    eng = ServeEngine(params, base, n_slots=case["n_slots"], max_len=case["max_len"],
+                      device=device)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new=case["max_new"]))
+    done = sorted(eng.run_to_completion(), key=lambda r: r.rid)
+    margins = []
+    for p, r in zip(prompts, done):
+        seq = np.concatenate([p, np.asarray(r.tokens[:-1], np.int32)])
+        lg = tf.forward(params, base, torch.as_tensor(seq, device=device)[None])[0][0].cpu()
+        margins.append([_margin(lg[len(p) - 1 + j].numpy()) for j in range(len(r.tokens))])
+    return lm_moe_record(logits.cpu(), moe_loss.item(), drops, pre, [r.tokens for r in done],
+                         margins)
+
+
+def lm_moe_mismatch(got: dict, want: dict, tol: float = LM_LOGITS_TOL):
+    """None if ``got`` meets ``want``: :func:`lm_mismatch`, the forward's
+    digest and ``moe_loss`` within ``tol``, each layer's drop share equal."""
+    bad = lm_mismatch(got, want, tol)
+    if bad is not None:
+        return bad
+    if got["moe_drop_frac"] != want["moe_drop_frac"]:
+        return f"moe_drop_frac {got['moe_drop_frac']} != {want['moe_drop_frac']}"
+    for key in ("forward_last_logits", "forward_row_max", "moe_loss"):
+        g, w = np.asarray(got[key]), np.asarray(want[key])
+        if g.shape != w.shape or (np.abs(g - w) > tol * (1 + np.abs(w))).any():
+            return f"{key}: max abs err {np.abs(g - w).max()} past rtol=atol={tol}"
+    return None
+
+
 def compute() -> dict:
     return {
         "eps": EPS,
@@ -690,6 +830,12 @@ def compute() -> dict:
                       for name, case in LM_CASES.items()},
             "answers": {name: reference_lm_entry(name) for name in LM_CASES},
         },
+        "lm_moe": {
+            "seed": LM_SEED,
+            "case": {**LM_MOE_CASE, "forward_shape": list(LM_MOE_CASE["forward_shape"]),
+                     "prompt_lens": list(LM_MOE_CASE["prompt_lens"])},
+            "answers": {arch: reference_lm_moe_entry(arch) for arch in LM_MOE_ARCHS},
+        },
     }
 
 
@@ -709,6 +855,10 @@ def main() -> int:
         print(case, [(e.get("seed"), e.get("size", e.get("best_size"))) for e in entry])
     for name, entry in golden["lm"]["answers"].items():
         print(name, "tokens", entry["tokens"], "least margin",
+              min(min(m) for m in entry["margins"]))
+    for arch, entry in golden["lm_moe"]["answers"].items():
+        print(arch, "tokens", entry["tokens"], "moe_loss", entry["moe_loss"],
+              "drop", entry["moe_drop_frac"], "least margin",
               min(min(m) for m in entry["margins"]))
     return 0
 

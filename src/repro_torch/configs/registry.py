@@ -13,8 +13,6 @@ from repro_torch.configs.base import ArchSpec
 
 # The reference's other archs, and the ROADMAP item that ports each.
 NOT_PORTED = {
-    "mixtral-8x7b": "the MoE FFN, ROADMAP Queue 1 item 12",
-    "llama4-maverick-400b-a17b": "the MoE FFN, ROADMAP Queue 1 item 12",
     "mace": "the GNN family, ROADMAP Queue 1 item 12",
     "egnn": "the GNN family, ROADMAP Queue 1 item 12",
     "graphsage-reddit": "the GNN family, ROADMAP Queue 1 item 12",
@@ -24,9 +22,17 @@ NOT_PORTED = {
 
 
 def all_archs() -> Dict[str, ArchSpec]:
-    from repro_torch.configs import densest_mapreduce, llama3_2_3b, qwen2_72b, starcoder2_7b
+    from repro_torch.configs import (
+        densest_mapreduce,
+        llama3_2_3b,
+        llama4_maverick_400b,
+        mixtral_8x7b,
+        qwen2_72b,
+        starcoder2_7b,
+    )
 
-    specs = [llama3_2_3b.SPEC, starcoder2_7b.SPEC, qwen2_72b.SPEC, densest_mapreduce.SPEC]
+    specs = [llama3_2_3b.SPEC, starcoder2_7b.SPEC, qwen2_72b.SPEC, mixtral_8x7b.SPEC,
+             llama4_maverick_400b.SPEC, densest_mapreduce.SPEC]
     return {s.arch_id: s for s in specs}
 
 

@@ -4,6 +4,7 @@ The values are the JAX package's (``repro/constants.py``), copied so both
 packages land on the same bucket shapes and the same ladder schedule for the
 same graph: the parity tests compare their compaction segments one to one.
 Modules alias these names (``_X = constants.X``) so tests can patch them.
+The last section is the port's own: the reference has no counterpart.
 """
 
 from __future__ import annotations
@@ -35,3 +36,7 @@ LOCAL_VOLUME_FACTOR = 32
 TURNSTILE_SAMPLE_EDGE_FLOOR = 256
 TURNSTILE_SAMPLE_NODE_FLOOR = 256
 TURNSTILE_BATCH_FLOOR = 1024
+
+# The port's own: K1's chunk plan (graph/partition.py::chunk_slots_for).  A
+# chunk is at least one 128-slot step for each of a CTA's 8 warps.
+K1_CHUNK_FLOOR = 1024

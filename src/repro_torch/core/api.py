@@ -377,11 +377,11 @@ class DenseSubgraphResult:
 
     def nodes(self) -> np.ndarray:
         """Node ids of the best set (S side for directed; host side)."""
-        return np.nonzero(self.best_alive.cpu().numpy())[0]
+        return np.nonzero(hostsync.fetch(self.best_alive))[0]
 
     def t_nodes(self) -> np.ndarray:
         """Node ids of the best T side (directed results; host side)."""
-        return np.nonzero(self.best_t.cpu().numpy())[0]
+        return np.nonzero(hostsync.fetch(self.best_t))[0]
 
     @property
     def density(self) -> float:
@@ -527,7 +527,7 @@ def _policy_name(problem: Problem) -> str:
 def _host_f32(values) -> np.ndarray:
     """A sweep axis as a flat float32 host array (lists, numpy or tensors)."""
     if isinstance(values, torch.Tensor):
-        values = values.detach().cpu().numpy()
+        values = hostsync.fetch(values.detach())
     return np.asarray(values, np.float32).reshape(-1)
 
 

@@ -181,10 +181,12 @@ def edge_shards(mesh, axes: Sequence[str]) -> EdgeShards:
     per_mesh = mesh.__dict__.setdefault("_edge_shards", {})
     if axes in per_mesh:
         return per_mesh[axes]
+    # repro: allow(host-sync) a DeviceMesh keeps its layout as a CPU tensor: host data
     layout = mesh.mesh.cpu()
     dims = [names.index(a) for a in axes]
     rest = [d for d in range(layout.dim()) if d not in dims]
     count = int(np.prod([layout.shape[d] for d in dims]))
+    # repro: allow(host-sync) the mesh layout, host data (above)
     rows = layout.permute(rest + dims).reshape(-1, count).tolist()
     me = dist.get_rank()
     found = None
@@ -197,6 +199,7 @@ def edge_shards(mesh, axes: Sequence[str]) -> EdgeShards:
                 perm = torch.as_tensor(np.argsort(order))
             found = EdgeShards(group=group, count=count, index=row.index(me), perm=perm)
     if found is None:
+        # repro: allow(host-sync) the mesh layout, host data (above)
         raise ValueError(f"rank {me} is not in the mesh {layout.tolist()}")
     per_mesh[axes] = found
     return found

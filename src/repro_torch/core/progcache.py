@@ -16,7 +16,7 @@ source.  This module keeps the built shared libraries:
   * the sidecar is checked again on load, and so is the library's hash, so
     a copied directory, a torn write or a corrupt library reads as a miss;
   * the library is built into a same-directory temp file and published with
-    ``os.replace``, then the sidecar through
+    :func:`repro_torch.ioutil.atomic_publish`, then the sidecar through
     :func:`repro_torch.ioutil.atomic_write_file`: a reader sees an old entry
     or a new one, never a torn one;
   * any load failure (a missing file, a missing or corrupt sidecar, a
@@ -46,7 +46,7 @@ import torch
 
 import repro_torch
 from repro_torch import faults, kernels
-from repro_torch.ioutil import atomic_write_file
+from repro_torch.ioutil import atomic_publish, atomic_write_file
 
 # Bump to invalidate every existing entry on a format change.
 FORMAT_VERSION = 1
@@ -134,12 +134,13 @@ def store(path: Path, key: str, build_fn: Callable[[Path], None],
         os.close(fd)
     except Exception:  # noqa: BLE001 — best-effort publish
         return False
+    # repro: allow(fault-sites) publishes what the try above made, after its progcache.store hook fired
     try:
         build_fn(Path(tmp))
         sidecar = json.dumps({
             "fingerprint": fingerprint(flags), "key": key, "sha256": _file_sha256(Path(tmp)),
         }, sort_keys=True).encode()
-        os.replace(tmp, path)
+        atomic_publish(tmp, str(path))
         atomic_write_file(str(_sidecar(path)), lambda f: f.write(sidecar),
                           suffix=_SIDECAR_SUFFIX + ".tmp")
         return True

@@ -262,7 +262,9 @@ class StreamingDensest:
             )
         except Exception as e:  # noqa: BLE001 — quarantine + start fresh
             quarantine = path + ".corrupt"
+            # repro: allow(fault-sites) recovery path of the hooked streaming.checkpoint_load try above
             try:
+                # repro: allow(atomic-io) quarantine rename of a corrupt file, not an artifact publish
                 os.replace(path, quarantine)
             except OSError:
                 quarantine = "<rename failed>"
@@ -555,6 +557,7 @@ class StreamingDensest:
         if rung_dir is not None:
             if spill is None:  # no survivors: publish an empty spill
                 spill = EdgeSpillWriter(rung_dir, w_dtype if w_dtype is not None else np.float32)
+            # repro: allow(fault-sites) spill.finalize fires edgelist.spill_publish inside this try
             try:
                 np.save(os.path.join(rung_dir, "id_map.npy"), new_id_map)
                 # Publish is atomic (manifest last); a failure aborts the

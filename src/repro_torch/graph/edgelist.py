@@ -295,6 +295,7 @@ class EdgeSpillWriter:
         self.dir = spill_dir
         self.w_dtype = np.dtype(w_dtype)
         self._files = {
+            # repro: allow(atomic-io) append-only data files: invisible until finalize publishes the manifest
             name: open(os.path.join(spill_dir, f"{name}.bin"), "wb")
             for name in ("src", "dst", "w")
         }
@@ -329,6 +330,7 @@ class EdgeSpillWriter:
         faults.fire("edgelist.spill_publish")
         for f in self._files.values():
             f.flush()
+            # repro: allow(atomic-io) data-file durability must precede the manifest publish below
             os.fsync(f.fileno())
             f.close()
         manifest = dict(meta)

@@ -17,6 +17,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import constants
 
 # The tiled-degree kernel's chunk plan.  A tile of at most ``chunk_slots``
 # slots is one CTA; a larger one (a hub tile holds 21% of all slots at
@@ -26,7 +27,7 @@ import torch
 # on an H100), at least CHUNK_FLOOR (one 128-slot step for each of a CTA's
 # 8 warps).
 CHUNK_TARGET = 1024
-CHUNK_FLOOR = 1024
+CHUNK_FLOOR = constants.K1_CHUNK_FLOOR
 
 
 def pow2_bucket(x: int, floor: int = 1) -> int:

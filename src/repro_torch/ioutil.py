@@ -1,10 +1,11 @@
-"""Shared host-I/O primitive of the port (counterpart of ``repro.ioutil``,
+"""Shared host-I/O primitives of the port (counterpart of ``repro.ioutil``,
 copied: the port imports nothing of the JAX package).
 
 The crash-safe file publish behind the persistent cache of built kernels
 (``core/progcache.py``), the streaming driver's checkpoints
 (``core/streaming.py``) and the spill ladder's manifests
-(``graph/edgelist.py``).
+(``graph/edgelist.py``).  The ``atomic-io`` rule of
+``repro_torch.analysis`` holds every other module of the port to them.
 """
 
 from __future__ import annotations
@@ -39,3 +40,16 @@ def atomic_write_file(
         except OSError:
             pass
         raise
+
+
+def atomic_publish(tmp_path: str, final_path: str) -> None:
+    """Publishes a file that another writer finished at ``tmp_path`` (in
+    ``final_path``'s directory, e.g. a library ``nvcc`` built there): fsync,
+    then ``os.replace`` onto ``final_path``, so a reader sees the old file
+    or the whole new one."""
+    fd = os.open(tmp_path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+    os.replace(tmp_path, final_path)

@@ -46,6 +46,13 @@ def dense(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     return y
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``, op by op in x's dtype as XLA lowers it (each op
+    rounds: in bf16 one fused sigmoid differs from it in a third of the
+    elements)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
     x32 = x.float()

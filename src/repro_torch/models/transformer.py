@@ -1,8 +1,9 @@
 """Decoder-only transformer LM (counterpart of ``repro.models.transformer``):
-GQA + RoPE + (SWA | full) attention, SwiGLU or GELU dense MLP.
+GQA + RoPE + (SWA | full) attention, SwiGLU or GELU dense MLP or the MoE FFN
+(``models/moe.py``).
 
-One implementation covers llama3.2-3b, starcoder2-7b and qwen2-72b via
-:class:`TransformerConfig`.  Inference paths, all under
+One implementation covers llama3.2-3b, starcoder2-7b, qwen2-72b, mixtral-8x7b
+and llama4-maverick-400b-a17b via :class:`TransformerConfig`.  Inference paths, all under
 ``torch.inference_mode()``:
 
   forward()      full-sequence causal LM (scoring)
@@ -14,8 +15,7 @@ axis 0 (``params["layers"]["attn"]["wq"]["w"]`` is ``[L, d_model, d_q]``),
 so :func:`params_from_reference` is a copy of the JAX tree.  What the
 reference does that has nothing to do here is dropped: ``shard(...)`` is the
 identity outside a mesh (the mesh slice brings sharding), ``remat`` changes
-no output of inference, and the layer scan is a Python loop.  ``cfg.moe``
-raises: the MoE FFN is ROADMAP Queue 1, item 12.
+no output of inference, and the layer scan is a Python loop.
 """
 
 from __future__ import annotations
@@ -35,9 +35,8 @@ from repro_torch.models.attention import (
     gqa_attention,
     lengths,
 )
-from repro_torch.models.common import apply_rope, dense, layernorm, rmsnorm, trunc_normal
-
-_MOE = "cfg.moe: the MoE FFN (models/moe.py) is not ported yet, ROADMAP Queue 1 item 12"
+from repro_torch.models.common import apply_rope, dense, layernorm, rmsnorm, silu, trunc_normal
+from repro_torch.models.moe import MoEConfig, moe_apply, moe_spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,7 +54,7 @@ class TransformerConfig:
     qkv_bias: bool = False
     rope_theta: float = 500_000.0
     window: Optional[int] = None  # sliding-window attention (Mixtral)
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     tie_embeddings: bool = False
     compute_dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
@@ -115,8 +114,6 @@ def param_spec(cfg: TransformerConfig) -> Dict[str, Any]:
     """Every parameter as ``(shape, init)``, nested as the reference nests
     them; init is ``("trunc", std)``, ``("normal", std)``, ``"ones"`` or
     ``"zeros"``."""
-    if cfg.moe is not None:
-        raise NotImplementedError(_MOE)
     L, d = cfg.n_layers, cfg.d_model
 
     def dense_spec(d_in, d_out, bias=False):
@@ -141,7 +138,9 @@ def param_spec(cfg: TransformerConfig) -> Dict[str, Any]:
             "wo": dense_spec(cfg.d_q, d),
         },
     }
-    if cfg.mlp_type == "swiglu":
+    if cfg.moe is not None:
+        layers["moe"] = moe_spec(cfg.moe, d, cfg.d_ff, lead=(L,))
+    elif cfg.mlp_type == "swiglu":
         layers["mlp"] = {
             "w_gate": dense_spec(d, cfg.d_ff),
             "w_up": dense_spec(d, cfg.d_ff),
@@ -250,13 +249,6 @@ def _attention_block(cfg, p, x, positions):
     return x + out.to(x.dtype), k, v
 
 
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu``, op by op in x's dtype as XLA lowers it (each op
-    rounds: in bf16 one fused sigmoid differs from it in a third of the
-    elements)."""
-    return x * (1 / (1 + torch.exp(-x)))
-
-
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu(approximate=True)``, op by op in x's dtype, with its
     constants rounded to that dtype first (XLA's weak typing)."""
@@ -268,16 +260,21 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def _ffn_block(cfg, p, x):
+    """The FFN sublayer: (x + ffn(norm(x)), aux), aux the MoE's
+    ``moe_aux``/``moe_z``/``moe_drop_frac`` or {} for a dense MLP."""
     cd = cfg.compute_dtype
     h = _norm(cfg, p["ln2"], x)
-    if cfg.mlp_type == "swiglu":
+    aux = {}
+    if cfg.moe is not None:
+        y, aux = moe_apply(p["moe"], cfg.moe, h, cd)
+    elif cfg.mlp_type == "swiglu":
         g = dense(p["mlp"]["w_gate"], h, cd)
         u = dense(p["mlp"]["w_up"], h, cd)
-        y = dense(p["mlp"]["w_down"], _silu(g) * u, cd)
+        y = dense(p["mlp"]["w_down"], silu(g) * u, cd)
     else:
         u = dense(p["mlp"]["w_up"], h, cd)
         y = dense(p["mlp"]["w_down"], _gelu(u), cd)
-    return x + y.to(x.dtype)
+    return x + y.to(x.dtype), aux
 
 
 def _logits(cfg, params, x) -> torch.Tensor:
@@ -290,24 +287,23 @@ def _logits(cfg, params, x) -> torch.Tensor:
     return h @ params["lm_head"]["w"].to(cd).float()
 
 
-def _check_cfg(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(_MOE)
-
-
 @torch.inference_mode()
 def forward(params, cfg: TransformerConfig, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Causal LM forward: tokens int[B, S] -> (logits f32[B, S, V], moe_loss),
-    on the tokens' device; moe_loss is 0 (no experts in the ported configs)."""
-    _check_cfg(cfg)
+    on the tokens' device; moe_loss is the layers' ``moe_aux + moe_z``
+    summed in layer order, as the reference's scan carries it (0 without
+    experts)."""
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
     x = _embed(cfg, params, tokens)
+    moe_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         p = layer_params(params, i)
         x, _, _ = _attention_block(cfg, p, x, positions)
-        x = _ffn_block(cfg, p, x)
-    return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = _ffn_block(cfg, p, x)
+        if aux:
+            moe_loss = moe_loss + (aux["moe_aux"] + aux["moe_z"])
+    return _logits(cfg, params, x), moe_loss
 
 
 # ---------------------------------------------------------------------------
@@ -334,7 +330,6 @@ def prefill(params, cfg: TransformerConfig, tokens: torch.Tensor, extra_slots: i
     the prompt for subsequent dense-cache decode steps (rolling caches need
     none).  ``cur_len`` is the prompt length, a Python int.
     """
-    _check_cfg(cfg)
     b, s = tokens.shape
     dev = tokens.device
     positions = torch.arange(s, dtype=torch.int32, device=dev)
@@ -350,7 +345,7 @@ def prefill(params, cfg: TransformerConfig, tokens: torch.Tensor, extra_slots: i
     for i in range(cfg.n_layers):
         p = layer_params(params, i)
         x, k, v = _attention_block(cfg, p, x, positions)
-        x = _ffn_block(cfg, p, x)
+        x, _ = _ffn_block(cfg, p, x)
         if cfg.window is None:
             cache["k"][i, :, :s] = k
             cache["v"][i, :, :s] = v
@@ -367,9 +362,9 @@ def decode_step(params, cfg: TransformerConfig, cache, tokens: torch.Tensor, cur
     every row, or int[B], one per row: each row's own mask and RoPE).
 
     Writes the new K/V into ``cache`` IN PLACE (the reference returns a new
-    cache) and returns (logits f32[B, V], cache, cur_len + 1).
+    cache) and returns (logits f32[B, V], cache, cur_len + 1).  With experts,
+    the B tokens are one MoE group, as in the reference's decode_step.
     """
-    _check_cfg(cfg)
     b = tokens.shape[0]
     cd = cfg.compute_dtype
     x = _embed(cfg, params, tokens)
@@ -388,6 +383,6 @@ def decode_step(params, cfg: TransformerConfig, cache, tokens: torch.Tensor, cur
         cache_update(ck, cv, k, v, cur, rolling)
         out = decode_attention(q, ck, cv, cur, window=cfg.window, impl=cfg.attn_impl)
         x = x + dense(p["attn"]["wo"], out.reshape(b, 1, cfg.d_q), cd).to(x.dtype)
-        x = _ffn_block(cfg, p, x)
+        x, _ = _ffn_block(cfg, p, x)
     logits = _logits(cfg, params, x)
     return logits[:, 0], cache, cur_len + 1

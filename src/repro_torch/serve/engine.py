@@ -12,7 +12,9 @@
 
 The reference vmaps a B=1 decode over the slot dimension.  Here the slots
 are one batch of ``decode_step``, each row at its own ``cur_len`` (its own
-mask and RoPE position), which gives what a per-slot decode gives.
+mask and RoPE position), which gives what a per-slot decode gives.  An MoE
+config decodes with ``group_size=1``: each slot's token is then its own
+group with capacity ``top_k``, as each vmapped B=1 decode is.
 """
 
 from __future__ import annotations
@@ -63,6 +65,8 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
+        self.decode_cfg = cfg if cfg.moe is None else dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, group_size=1))
         self.n_slots = n_slots
         # Rolling caches must match the prefill buffer layout exactly (slot
         # s holds position p with p % window == s).
@@ -150,8 +154,8 @@ class ServeEngine:
             toks[i, 0] = self.slot_req[i].tokens[-1]
         cur = torch.as_tensor(self.cur_len, device=self.device)
         logits, self.cache, _ = decode_step(
-            self.params, self.cfg, self.cache, torch.as_tensor(toks, device=self.device), cur
-        )
+            self.params, self.decode_cfg, self.cache, torch.as_tensor(toks, device=self.device),
+            cur)
         nxt = self.sampler(logits).cpu().numpy()
         for i in active:
             self.slot_req[i].tokens.append(int(nxt[i]))

@@ -85,6 +85,10 @@ PORT_MODULES = (
     "repro_torch.serve.turnstile", "repro_torch.core.streaming", "repro_torch.graph.edgelist",
     "repro_torch.core.mapreduce", "repro_torch.collectives",
     "repro_torch.configs.densest_mapreduce", "repro_torch.graph.generators",
+    "repro_torch.analysis", "repro_torch.analysis.core", "repro_torch.analysis.project",
+    "repro_torch.analysis.rules", "repro_torch.analysis.rules.host_sync",
+    "repro_torch.models.moe", "repro_torch.configs.mixtral_8x7b",
+    "repro_torch.configs.llama4_maverick_400b",
 )
 
 
@@ -106,6 +110,22 @@ def test_importing_the_port_loads_no_jax():
         "bad = [m for m in ('jax', 'jaxlib', 'repro') if m in sys.modules]; "
         "state = (faults.installed(), faults._ACTIVE, BUILD_LOG); "
         "print(bad, state); sys.exit(1 if bad or state != (None, None, {}) else 0)"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_linter_loads_neither_torch_nor_the_reference():
+    """``repro_torch.analysis`` is pure ``ast``/stdlib: importing it and
+    running its CLI load no torch, no JAX and nothing of ``repro`` (not even
+    ``repro.analysis``, which is jax-free)."""
+    code = (
+        "import sys; from repro_torch.analysis import __main__ as cli; "
+        "assert cli.main(['--strict']) == 0; "
+        "bad = [m for m in ('torch', 'numpy', 'jax', 'repro', 'repro.analysis') "
+        "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,

@@ -230,8 +230,15 @@ def test_configs_match_reference(arch):
 
 
 def test_unported_archs_and_moe_raise():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_arch("mixtral-8x7b")
-    cfg = dataclasses.replace(get_arch("llama3.2-3b").reduced_config, moe=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.init_params(cfg, torch.Generator(), device="cpu")
+    """The GNN and recsys archs still raise; the MoE archs build and run
+    (tests/test_torch_moe.py holds them to the reference)."""
+    for arch in ("mace", "egnn", "graphsage-reddit", "equiformer-v2", "two-tower-retrieval"):
+        with pytest.raises(KeyError, match="ROADMAP"):
+            get_arch(arch)
+    for arch in ("mixtral-8x7b", "llama4-maverick-400b-a17b"):
+        cfg = get_arch(arch).reduced_config
+        params = tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        assert set(params["layers"]) == {"ln1", "ln2", "attn", "moe"}
+        logits, moe_loss = tf.forward(params, cfg, torch.zeros((1, 8), dtype=torch.int64))
+        assert logits.shape == (1, 8, cfg.vocab) and torch.isfinite(logits).all()
+        assert float(moe_loss) > 0
