@@ -5,7 +5,7 @@
 
 Builds the port's four CUDA kernels from the sources in this checkout (one
 ``nvcc`` each, all started together), holds each against its plain PyTorch
-version on the card, then drives the port's ten paths through the
+version on the card, then drives the port's eleven paths through the
 entry points a user calls:
 
 * Algorithm 1 on the geometric ladder, ``solve(edges,
@@ -61,7 +61,16 @@ entry points a user calls:
   prompt through K4's sliding window (4,096) against ``'xla'``, the MoE
   share of its device time, the ``ServeEngine`` answering 4 requests at
   capacity 8.0 (each answer against a full forward), and the drop share at
-  the config's own capacity.
+  the config's own capacity;
+* training, llama3.2-3b at full width (28 layers, 4,096-token sequences,
+  remat on, ``attn_impl='auto'``: the chunked path, bf16 compute, f32
+  parameters and moments): step 1 under 'auto' against 'xla' and a
+  no-diagonal control, three ``make_train_step`` steps (AdamW in place),
+  one profiled; ``flash_attention_trainable`` (K4's forward, the chunked
+  backward) at the same attention shape against the chunked vjp and dense
+  autodiff; the golden training entries of the five LM archs' REDUCED
+  configs; and ``python -m repro_torch.launch.train`` killed and resumed in
+  child processes, bitwise.
 
 Answers are checked against the exact backend, the plain versions, the
 port on the CPU and the JAX package's golden fixture
@@ -84,6 +93,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -589,18 +599,24 @@ def _union_ms(intervals) -> float:
     return total / 1e3
 
 
-def phase_profile(label: str, run, span=None, **extra) -> None:
+def phase_profile(label: str, run, span=None, kinds=None, **extra) -> None:
     """Where one run's device time goes, by kernel name (torch.profiler),
     and the device's busy share of its wall time (the wall measured on a
     run without the profiler): ``device_busy_ms`` sums every activity's
     time, ``device_busy_union_ms`` counts time when activities on several
     streams overlap once, and the idle share is taken from the union.
 
-    ``span=(module, name)`` runs ``module.name`` inside
-    ``torch.profiler.record_function(name)`` during the profiled run and
-    reports the device time of the kernels launched inside the range
-    (``span_device_ms``, the range's device total in ``key_averages``) and
-    its share of ``device_busy_ms``.  ``extra`` is logged on the line (the card)."""
+    ``span=(owner, name)`` runs ``owner.name`` (a module's function or a
+    class's staticmethod) inside ``torch.profiler.record_function(name)``
+    during the profiled run and reports the device time of the kernels
+    launched inside the range (``span_device_ms``, the range's device total
+    in ``key_averages``) and its share of ``device_busy_ms``; a list of
+    ``(owner, name, label)`` reports each label's ranges (``spans``).
+    ``kinds={kind: substrings}`` sums the device time of the kernels whose
+    name holds one of the substrings.  ``extra`` is logged on the line (the
+    card)."""
+    import inspect
+
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -609,29 +625,34 @@ def phase_profile(label: str, run, span=None, **extra) -> None:
     run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    if span is not None:
-        module, name = span
-        real = getattr(module, name)
+    one = isinstance(span, tuple)
+    spans = [] if span is None else [span + (span[1],)] if one else list(span)
+    saved = []
+    for owner, name, tag in spans:
+        real = inspect.getattr_static(owner, name)
+        fn = real.__func__ if isinstance(real, staticmethod) else real
 
-        def annotated(*args, **kw):
-            with record_function(name):
-                return real(*args, **kw)
+        def annotated(*args, _fn=fn, _tag=tag, **kw):
+            with record_function(_tag):
+                return _fn(*args, **kw)
 
-        setattr(module, name, annotated)
+        saved.append((owner, name, real))
+        setattr(owner, name, staticmethod(annotated) if isinstance(real, staticmethod)
+                else annotated)
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
     finally:
-        if span is not None:
-            setattr(module, name, real)
+        for owner, name, real in saved:
+            setattr(owner, name, real)
 
     def dev_us(ev):
         return getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0)
 
     cuda = torch.autograd.DeviceType.CUDA
-    span_name = span[1] if span is not None else None  # its range on the device is no kernel
-    rows = [ev for ev in prof.key_averages() if ev.device_type == cuda and ev.key != span_name]
+    tags = {tag for _, _, tag in spans}  # a range on the device is no kernel
+    rows = [ev for ev in prof.key_averages() if ev.device_type == cuda and ev.key not in tags]
     busy_ms = sum(dev_us(ev) for ev in rows) / 1e3
     if busy_ms == 0:
         log("profile", run=label,
@@ -639,16 +660,27 @@ def phase_profile(label: str, run, span=None, **extra) -> None:
             **extra)
         return
     union_ms = _union_ms((ev.time_range.start, ev.time_range.end) for ev in prof.events()
-                         if ev.device_type == cuda and ev.name != span_name)
+                         if ev.device_type == cuda and ev.name not in tags)
     out = dict(wall_ms=wall_ms, device_busy_ms=busy_ms, device_busy_union_ms=union_ms,
                device_busy_share=union_ms / wall_ms, device_idle_share=1 - union_ms / wall_ms)
-    if span is not None:
-        host = [ev for ev in prof.key_averages() if ev.key == span_name and ev.device_type != cuda]
+    by_span = {}
+    for tag in sorted(tags):
+        host = [ev for ev in prof.key_averages() if ev.key == tag and ev.device_type != cuda]
         span_ms = sum(getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
                       for ev in host) / 1e3
-        out.update(span=span_name, span_calls=sum(ev.count for ev in host),
-                   span_device_ms=span_ms or "not measured",
-                   span_share_of_busy=span_ms / busy_ms if span_ms else "not measured")
+        by_span[tag] = dict(calls=sum(ev.count for ev in host),
+                            device_ms=span_ms or "not measured",
+                            share_of_busy=span_ms / busy_ms if span_ms else "not measured")
+    if one:
+        (tag, r), = by_span.items()
+        out.update(span=tag, span_calls=r["calls"], span_device_ms=r["device_ms"],
+                   span_share_of_busy=r["share_of_busy"])
+    elif by_span:
+        out["spans"] = by_span
+    if kinds:
+        out["kinds_ms"] = {kind: sum(dev_us(ev) for ev in rows
+                                     if any(w in ev.key for w in words)) / 1e3
+                           for kind, words in kinds.items()}
     log("profile", run=label, **out, **extra)
     for ev in sorted(rows, key=dev_us, reverse=True)[:15]:
         print(f"  {dev_us(ev) / 1e3:9.4f} ms  x{ev.count:<4d} {ev.key[:110]}", flush=True)
@@ -2359,24 +2391,36 @@ def _row_rel_err(got, want) -> float:
 
 
 @contextlib.contextmanager
-def _layer0_without_diagonal():
-    """The control of the prefill checks: the model's first attention call
-    runs with its diagonal dropped from the mask (kpos < qpos)."""
+def _without_diagonal(layer: int = 0):
+    """The control of the prefill and training checks: layer ``layer``'s
+    attention drops the diagonal from its mask (kpos < qpos), in the forward
+    and in remat's recompute alike (the layer is told by a tag on its
+    parameter dict)."""
     from repro_torch.models import transformer
 
-    real, calls = transformer.gqa_attention, []
+    pick, block, attn = transformer.layer_params, transformer._attention_block, \
+        transformer.gqa_attention
 
-    def no_diagonal_in_layer0(q, k, v, *, q_positions, kv_positions, **kw):
-        calls.append(1)
-        if len(calls) == 1:
-            kv_positions = kv_positions + 1  # kpos + 1 <= qpos: kpos < qpos
-        return real(q, k, v, q_positions=q_positions, kv_positions=kv_positions, **kw)
+    def tagged(params, i):
+        return {**pick(params, i), "_no_diagonal": i == layer}
 
-    transformer.gqa_attention = no_diagonal_in_layer0
+    def no_diagonal(q, k, v, *, q_positions, kv_positions, **kw):
+        return attn(q, k, v, q_positions=q_positions, kv_positions=kv_positions + 1, **kw)
+
+    def maybe_dropped(cfg, p, x, positions):
+        if not p.get("_no_diagonal"):
+            return block(cfg, p, x, positions)
+        transformer.gqa_attention = no_diagonal
+        try:
+            return block(cfg, p, x, positions)
+        finally:
+            transformer.gqa_attention = attn
+
+    transformer.layer_params, transformer._attention_block = tagged, maybe_dropped
     try:
         yield
     finally:
-        transformer.gqa_attention = real
+        transformer.layer_params, transformer._attention_block = pick, block
 
 
 # The pallas prefill against the xla prefill of the same weights, bf16.
@@ -2414,7 +2458,7 @@ def phase_lm_prefill(params, tokens) -> dict:
     (lp, cp, launches), (lx, cx, _) = runs["pallas"], runs["xla"]
 
     # The control: the xla prefill with layer 0's mask missing its diagonal.
-    with _layer0_without_diagonal():
+    with _without_diagonal():
         lc, cc, _ = transformer.prefill(params, lm_config(attn_impl="xla"), tokens)
 
     layer0_equal = all(torch.equal(cp[key][0], cx[key][0]) for key in ("k", "v"))
@@ -2695,7 +2739,7 @@ def phase_moe_prefill(params, tokens, smi: str) -> dict:
     if len(layers) != moe_config().n_layers or failures:
         raise AssertionError(f"K4 in the served model: {len(layers)} layers; {failures}")
 
-    with _layer0_without_diagonal(), _MoERecorder(rec_x.routes):
+    with _without_diagonal(), _MoERecorder(rec_x.routes):
         lc, cc, _ = transformer.prefill(params, moe_config(attn_impl="xla"), tokens)
 
     layer0_equal = all(torch.equal(cp[key][0], cx[key][0]) for key in ("k", "v"))
@@ -2825,6 +2869,390 @@ def phase_moe_golden(smi: str) -> None:
         log("golden", lm_moe_arch=arch, equal=f"JAX golden (tokens, drop shares; floats "
             f"rtol=atol={golden.LM_LOGITS_TOL})", tokens=got["tokens"],
             moe_drop_frac=got["moe_drop_frac"], card=smi)
+
+
+# -- Path 11: training, llama3.2-3b at full width, and K4's trainable route --
+
+TRAIN_SEQ = 4096  # train_4k's sequence length; its global batch cut from 256 to 1
+TRAIN_STEPS = 3
+TRAIN_ATTN = (1, TRAIN_SEQ, 24, 8, 128)  # B, S, Hq, Hkv, D: llama's attention in a step
+TRAIN_CHUNKS = (512, 1024)  # flash_attention_trainable's default backward chunks
+# Step 1 under 'auto' (the chunked path) against the same step under 'xla'
+# (dense), bf16 compute: the two paths round p to bf16 at other points, so
+# the loss, the grad norm and the gradients drift by bf16 roundings; these
+# limits sit between that drift and a control whose layer 0 drops the
+# diagonal from its mask (PERF.md has the readings on both sides).
+TRAIN_LOSS_TOL = 2e-3  # |loss_auto - loss_xla|
+TRAIN_GNORM_TOL = 1e-3  # |gnorm_auto - gnorm_xla| / gnorm_xla
+TRAIN_GRAD_TOL = 5e-2  # ||G_auto - G_xla|| / ||G_xla|| over every leaf
+# The trainable route's f32 gradients against dense autodiff, O(1)
+# cotangents: the reference test's limits (test_flash_trainable_grads_match_dense).
+TRAINABLE_GRAD_TOL = dict(rtol=2e-4, atol=1e-5)
+TRAIN_CLI_STEPS, TRAIN_CLI_EVERY = 20, 10
+
+
+def train_config(**kw):
+    """llama3.2-3b at full width as ``launch/cells.py`` trains it: remat on,
+    ``attn_impl='auto'`` (the chunked path at 4,096 tokens), bf16 compute,
+    f32 parameters."""
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch("llama3.2-3b").config,
+                               **{"remat": True, "attn_impl": "auto", **kw})
+
+
+def _tree_dist(a, b) -> float:
+    """||a - b|| / ||b|| over every leaf of two gradient trees (chunked: no
+    full-size temporary)."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.optim.adamw import CHUNK
+
+    num = den = 0.0
+    for x, y in zip(tree.leaves(a), tree.leaves(b)):
+        xf, yf = x.reshape(-1), y.reshape(-1)
+        for s in range(0, xf.numel(), CHUNK):
+            num += (xf[s:s + CHUNK] - yf[s:s + CHUNK]).double().square().sum().item()
+            den += yf[s:s + CHUNK].double().square().sum().item()
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def train_batches():
+    """Path 11's batches: ``lm_token_stream(vocab, 1, 4096, seed=0)``, the
+    steps' and two more for the profile."""
+    from repro_torch.data.pipeline import lm_token_stream
+
+    stream = lm_token_stream(train_config().vocab, batch=1, seq=TRAIN_SEQ, seed=0, device=DEV)
+    return [next(stream) for _ in range(TRAIN_STEPS + 2)]
+
+
+def phase_train_step1(params, batches, smi: str) -> float:
+    """llama3.2-3b, 28 layers at full width, one card: step 1's loss, grad
+    norm and gradients (no update) under 'auto' against 'xla', within the
+    TRAIN_* limits, and the layer-0 no-diagonal control outside each of
+    them.  Returns the 'auto' loss."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.optim import global_norm
+    from repro_torch.train.step import loss_and_grads, make_loss_fn
+
+    spec = get_arch("llama3.2-3b")
+
+    def grads(impl, control=False):
+        fn = make_loss_fn(spec, "train", cfg=train_config(attn_impl=impl))
+        with _without_diagonal() if control else contextlib.nullcontext():
+            (loss, metrics, g), wall, _, peak = _peak_run(
+                lambda: loss_and_grads(fn, params, batches[0]))
+        return loss.item(), global_norm(g).item(), g, wall, peak
+
+    lx, nx, gx, wall_x, peak_x = grads("xla")
+    la, na, ga, wall_a, peak_a = grads("auto")
+    dist = _tree_dist(ga, gx)
+    del ga
+    lc, nc, gc, _, _ = grads("auto", control=True)
+    ctrl_dist = _tree_dist(gc, gx)
+    del gc, gx
+    torch.cuda.empty_cache()
+    checks = dict(loss_abs_err=abs(la - lx), grad_norm_rel_err=abs(na - nx) / nx,
+                  grad_rel_l2=dist)
+    ctrl = dict(loss_abs_err=abs(lc - lx), grad_norm_rel_err=abs(nc - nx) / nx,
+                grad_rel_l2=ctrl_dist)
+    limits = dict(loss_abs_err=TRAIN_LOSS_TOL, grad_norm_rel_err=TRAIN_GNORM_TOL,
+                  grad_rel_l2=TRAIN_GRAD_TOL)
+    log("train.step1", loss_auto=la, loss_xla=lx, grad_norm_auto=na, grad_norm_xla=nx,
+        **checks, limits=limits, control_layer0_no_diagonal=ctrl, wall_ms_auto=wall_a,
+        wall_ms_xla=wall_x, peak_above_weights_mb_auto=peak_a,
+        peak_above_weights_mb_xla=peak_x, card=smi)
+    over = [k for k, v in checks.items() if not v <= limits[k]]
+    if over:
+        raise AssertionError(f"step 1 'auto' vs 'xla' past its limits: {over} ({checks})")
+    passed = [k for k, v in ctrl.items() if v <= limits[k]]
+    if passed:
+        raise AssertionError(f"the no-diagonal control passes {passed} ({ctrl})")
+    return la
+
+
+def phase_train_steps(params, batches, step1_loss, smi: str) -> dict:
+    """``make_train_step(make_loss_fn(spec, 'train'), AdamWConfig())`` for
+    TRAIN_STEPS steps (fp32 moments, the parameters and moments updated in
+    place: ``params`` are trained), every loss and grad norm finite, the
+    parameters moved, the peak under 80 GB; then one more step profiled."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import attention
+    from repro_torch.optim import AdamWConfig, global_norm, init_state
+    from repro_torch.train import step as train_step
+    from repro_torch.train.step import make_loss_fn, make_train_step
+
+    spec = get_arch("llama3.2-3b")
+    cfg = train_config()
+    opt_cfg = AdamWConfig()
+    opt = init_state(params, opt_cfg)
+    step = make_train_step(make_loss_fn(spec, "train", cfg=cfg), opt_cfg)
+    probe = params["layers"]["mlp"]["w_down"]["w"][-1, :4].clone()
+    rows, walls = [], []
+    for i in range(TRAIN_STEPS):
+        _zero_counts()
+        (params, opt, metrics), wall, _, peak = _peak_run(lambda: step(params, opt, batches[i]))
+        counts = _counts()
+        row = dict(step=i + 1, loss=metrics["loss"].item(),
+                   total_loss=metrics["total_loss"].item(),
+                   grad_norm=metrics["grad_norm"].item(), accuracy=metrics["accuracy"].item(),
+                   wall_ms=wall, peak_device_mb=torch.cuda.max_memory_allocated() / 2**20,
+                   peak_above_state_mb=peak, kernels=counts)
+        log("train.step", **row, card=smi)
+        rows.append(row)
+        walls.append(wall)
+        if not all(math.isfinite(row[k]) for k in ("loss", "grad_norm")):
+            raise AssertionError(f"train step {i + 1}: not finite {row}")
+    moved = not torch.equal(probe, params["layers"]["mlp"]["w_down"]["w"][-1, :4])
+    pnorm = global_norm(params).item()
+    median = statistics.median(walls[1:])
+    peak_mb = max(r["peak_device_mb"] for r in rows)
+    log("train.summary", arch="llama3.2-3b", layers=cfg.n_layers, seq=TRAIN_SEQ, batch=1,
+        params=cfg.param_count(), moments="fp32", remat=cfg.remat, attn_impl=cfg.attn_impl,
+        step1_loss_equals_grads_run=rows[0]["loss"] == step1_loss, params_moved=moved,
+        param_norm=pnorm, median_step_ms_2_3=median, tokens_per_s=TRAIN_SEQ / median * 1e3,
+        peak_device_mb=peak_mb, card=smi)
+    if not moved or not math.isfinite(pnorm):
+        raise AssertionError(f"the parameters did not move or are not finite ({pnorm})")
+    if peak_mb >= 80 * 1024:
+        raise AssertionError(f"peak {peak_mb} MB: over 80 GB")
+    spans = [(attention._ChunkedFlash, "forward", "chunked_attention"),
+             (attention._ChunkedFlash, "backward", "chunked_attention"),
+             (train_step, "apply_updates", "adamw")]
+    extra = iter(batches[TRAIN_STEPS:])
+    phase_profile("llama_train_step", lambda: step(params, opt, next(extra)), span=spans,
+                  kinds=TRAIN_KERNEL_KINDS, card=smi)
+    del opt
+    return {"launches": sum(r["kernels"]["k4"] for r in rows), "steps": rows}
+
+
+# Kernel-name classes of the training profile (cuBLAS/cuBLASLt GEMMs, and
+# the dtype copies: weight casts to bf16 and operand upcasts to f32).
+TRAIN_KERNEL_KINDS = {"gemm": ("gemm", "xmma", "nvjet", "cutlass", "Kernel2"),
+                      "copy_or_cast": ("copy",)}
+
+
+def train_attention_bound_ms(q, k, pairs: int) -> tuple:
+    """Least time for one attention forward plus backward: 14·D FLOPs per
+    allowed pair and query head (the forward's 4·D, then the backward's
+    recomputed scores, dV, dP, dQ and dK, 2·D each) at the dtype's peak;
+    bytes: q, k, v and dout read, the output and dq, dk, dv written once.
+    (ms, 'operations' or 'bytes')."""
+    import torch
+
+    b, sq, hq, d = q.shape
+    flops = 14.0 * d * hq * b * pairs
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() * 2
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def phase_train_attention(smi: str) -> dict:
+    """``flash_attention_trainable`` at llama's attention shape in a train
+    step (B=1, S=4,096, 24/8 heads, D=128), bf16 and f32: its forward within
+    K4's limits against the plain version; dq, dk, dv bitwise equal to the
+    vjp of ``_chunked_gqa`` on the same grouped q, k, v at the same chunks;
+    f32 gradients within TRAINABLE_GRAD_TOL of dense autodiff; the pallas
+    impl refusing grad-requiring inputs; then K4's forward, the chunked
+    backward, the chunked and trainable forward+backward and SDPA's
+    forward+backward timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_trainable
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models.attention import _chunked_gqa, gqa_attention
+
+    b, s, hq, hkv, d = TRAIN_ATTN
+    qc, kc = TRAIN_CHUNKS
+    out_rec, launches = {}, 0
+    for dtype in ("bfloat16", "float32"):
+        q, k, v, pos = _flash_inputs(b, s, hq, hkv, d, dtype, seed=11)
+        g = torch.Generator(device=DEV).manual_seed(12)
+        dout = torch.randn(q.shape, generator=g, device=DEV).to(q.dtype)  # O(1) cotangents
+
+        def leaves():
+            return [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+        def trainable(qq, kk, vv):
+            return flash_attention_trainable(qq, kk, vv, q_positions=pos, kv_positions=pos,
+                                             bwd_q_chunk=qc, bwd_kv_chunk=kc)
+
+        def chunked(qq, kk, vv):
+            return _chunked_gqa(qq, kk, vv, q_positions=pos, kv_positions=pos, kv_valid=None,
+                                window=None, q_chunk=qc, kv_chunk=kc)
+
+        # The driven run: K4 once in the forward, the chunked vjp backward.
+        qq, kk, vv = leaves()
+        _zero_counts()
+        out = trainable(qq, kk, vv)
+        got = torch.autograd.grad(out, (qq, kk, vv), dout)
+        torch.cuda.synchronize()
+        counts = _counts()
+        if counts != {"k1": 0, "k2": 0, "k3": 0, "k4": 1}:
+            raise AssertionError(f"trainable route {dtype}: launches {counts}")
+        launches += counts["k4"]
+        want = flash_attention_ref(q, k, v, pos, pos).float()
+        fwd = flash_errors(out.detach().float(), want, dtype)
+        del want
+        qq2, kk2, vv2 = leaves()
+        ref = torch.autograd.grad(chunked(qq2, kk2, vv2), (qq2, kk2, vv2), dout)
+        bitwise = all(torch.equal(a, c) for a, c in zip(got, ref))
+        del ref
+        dense = {}
+        if dtype == "float32":
+            qq3, kk3, vv3 = leaves()
+            o3 = gqa_attention(qq3, kk3, vv3, q_positions=pos, kv_positions=pos, impl="xla")
+            g3 = torch.autograd.grad(o3, (qq3, kk3, vv3), dout)
+            del o3
+            tol = TRAINABLE_GRAD_TOL
+            for name, a, c in zip(("dq", "dk", "dv"), got, g3):
+                err = (a - c).abs()
+                dense[name] = dict(max_abs_err=err.max().item(),
+                                   outside=int((err > tol["atol"] + tol["rtol"] * c.abs()).sum()))
+            del g3
+        qq4, kk4, vv4 = leaves()
+        try:
+            gqa_attention(qq4, kk4, vv4, q_positions=pos, kv_positions=pos, impl="pallas")
+            refused = False
+        except RuntimeError as e:
+            refused = "flash_attention_trainable" in str(e)
+        log("train.k4", dtype=dtype, shape=f"B{b}_S{s}_H{hq}/{hkv}_D{d}", launches=counts,
+            forward=fwd, forward_tol=f"rtol=atol={FLASH_TOL[dtype]}, row {FLASH_ROW_TOL[dtype]}",
+            grads_bitwise_vs_chunked_vjp=bitwise, chunks=TRAIN_CHUNKS,
+            vs_dense_autodiff=dense or "bf16: not held (f32 only)",
+            dense_tol=TRAINABLE_GRAD_TOL, pallas_under_grad_raises=refused, card=smi)
+        bad = [f"forward {fwd}"] if fwd["outside"] or fwd["rows_outside"] else []
+        bad += [] if bitwise else ["gradients differ from the chunked vjp"]
+        bad += [f"{n} vs dense {e}" for n, e in dense.items() if e["outside"]]
+        bad += [] if refused else ["gqa_attention(impl='pallas') did not refuse"]
+        if bad:
+            raise AssertionError(f"trainable route {dtype}: " + "; ".join(bad))
+        del out, got
+
+        # Times (CUDA events, medians).
+        qq, kk, vv = leaves()
+        n = 10
+        k4_ms = time_ms(lambda: flash_attention(q, k, v, q_positions=pos, kv_positions=pos), n=n)
+        kept = chunked(qq, kk, vv)
+        bwd_ms = time_ms(lambda: torch.autograd.grad(kept, (qq, kk, vv), dout,
+                                                     retain_graph=True), n=n)
+        del kept
+        chunked_ms = time_ms(lambda: torch.autograd.grad(chunked(qq, kk, vv), (qq, kk, vv),
+                                                         dout), n=n)
+        trainable_ms = time_ms(lambda: torch.autograd.grad(trainable(qq, kk, vv),
+                                                           (qq, kk, vv), dout), n=n)
+        qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        dt = dout.transpose(1, 2).contiguous()
+        sdpa_ms = time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+            (qt, kt, vt), dt), n=n)
+        pairs = flash_pairs(pos, pos, None)
+        fwd_bound, fwd_by = flash_bound_ms(q, k, pairs)
+        fb_bound, fb_by = train_attention_bound_ms(q, k, pairs)
+        rec = dict(k4_fwd_ms=k4_ms, chunked_bwd_ms=bwd_ms, chunked_fwd_bwd_ms=chunked_ms,
+                   trainable_fwd_bwd_ms=trainable_ms, library_fwd_bwd_ms_sdpa=sdpa_ms,
+                   fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by, fwd_bwd_bound_ms=fb_bound,
+                   fwd_bwd_bound_by=fb_by)
+        log("train.k4.time", dtype=dtype, **rec, card=smi)
+        out_rec[dtype] = rec
+        del q, k, v, dout, qq, kk, vv, qt, kt, vt, dt
+        torch.cuda.empty_cache()
+    return {"launches": launches, "trainable": out_rec}
+
+
+def phase_train_golden(smi: str) -> None:
+    """The REDUCED configs of the five LM archs on the card (float32
+    compute) meet the JAX golden fixture's training entries: ``lm_loss`` and
+    its metrics, the grad norm, each leaf's sums after one AdamW step."""
+    import torch_port_golden as golden
+
+    with open(golden.GOLDEN) as f:
+        fixture = json.load(f)["lm_train"]["answers"]
+    for arch in golden.LM_TRAIN_ARCHS:
+        got = golden.port_lm_train_entry(arch, DEV)
+        bad = golden.lm_train_mismatch(got, fixture[arch])
+        if bad:
+            raise AssertionError(f"lm_train golden {arch}: {bad}")
+        log("golden", lm_train_arch=arch, equal=f"JAX golden (loss, metrics, grad norm "
+            f"rtol=atol={golden.LM_LOGITS_TOL}; leaf sums + {golden.LM_TRAIN_SUM_ATOL})",
+            total=got["total"], grad_norm=got["grad_norm"], card=smi)
+
+
+# The children's prologue: deterministic kernels (the embedding's backward
+# accumulates with atomics on CUDA otherwise), set before CUDA starts.
+TRAIN_CLI_PROLOGUE = (
+    "import os, sys; os.environ['CUBLAS_WORKSPACE_CONFIG'] = ':4096:8'; import torch; "
+    "torch.use_deterministic_algorithms(True); "
+    "from repro_torch.launch.train import main; main(sys.argv[1:])")
+
+
+def phase_train_cli(smi: str) -> None:
+    """``python -m repro_torch.launch.train --arch llama3.2-3b`` (REDUCED) in
+    child processes: 20 steps with a checkpoint every 10; then 10 steps in
+    one child and a ``--resume`` to 20 in another.  The two step_20
+    checkpoints must be equal bitwise (every array and the manifest)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    root = tempfile.mkdtemp(prefix="train_cli_")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+    def child(ckpt, steps, resume=False):
+        argv = [sys.executable, "-c", TRAIN_CLI_PROLOGUE, "--arch", "llama3.2-3b",
+                "--steps", str(steps), "--ckpt-every", str(TRAIN_CLI_EVERY),
+                "--ckpt-dir", os.path.join(root, ckpt), "--device", DEV]
+        return subprocess.Popen(argv + (["--resume"] if resume else []), env=env,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def finish(proc, what):
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"train CLI {what}: rc {proc.returncode}\n{err[-3000:]}")
+        return out.strip().splitlines()
+
+    try:
+        t0 = time.perf_counter()
+        straight, first = child("straight", TRAIN_CLI_STEPS), child("split", TRAIN_CLI_EVERY)
+        out_straight = finish(straight, "straight")
+        out_first = finish(first, "first half")
+        out_second = finish(child("split", TRAIN_CLI_STEPS, resume=True), "resume")
+        wall = time.perf_counter() - t0
+        if f"resumed from step {TRAIN_CLI_EVERY}" not in out_second:
+            raise AssertionError(f"the second child did not resume: {out_second}")
+        final = f"step_{TRAIN_CLI_STEPS}"
+        a_dir, b_dir = (os.path.join(root, c, final) for c in ("straight", "split"))
+        with np.load(os.path.join(a_dir, "arrays.npz")) as a, \
+                np.load(os.path.join(b_dir, "arrays.npz")) as b:
+            keys = sorted(a.files)
+            differ = [key for key in keys if key not in b.files
+                      or a[key].dtype != b[key].dtype or not np.array_equal(a[key], b[key])]
+            differ += sorted(set(b.files) - set(keys))
+            n_arrays = len(keys)
+        with open(os.path.join(a_dir, "manifest.json")) as f:
+            man_a = json.load(f)
+        with open(os.path.join(b_dir, "manifest.json")) as f:
+            man_b = json.load(f)
+        log("train.cli", arch="llama3.2-3b (REDUCED)", steps=TRAIN_CLI_STEPS,
+            ckpt_every=TRAIN_CLI_EVERY, straight=json.loads(out_straight[-1]),
+            first_half=json.loads(out_first[-1]), resumed=json.loads(out_second[-1]),
+            arrays=n_arrays, arrays_differing=differ, manifests_equal=man_a == man_b,
+            wall_s=wall, card=smi)
+        if differ or man_a != man_b:
+            raise AssertionError(f"kill-and-resume is not bitwise: {differ}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # -- Path 9: the port's benchmarks and examples (benchmarks/torch_port/,
@@ -3192,8 +3620,18 @@ def main() -> int:
     phase_profile("llama_prefill_pallas",
                   lambda: prefill(params, lm_config(attn_impl="pallas"), tokens))
     phase_lm_serve(params)
-    del params
+    # Path 11: training at full width (the same llama3.2-3b weights, now
+    # trained in place), K4's trainable route, the golden training entries
+    # and the training CLI's kill and resume.
+    t_train = time.perf_counter()
+    batches = train_batches()
+    train = phase_train_steps(params, batches, phase_train_step1(params, batches, smi), smi)
+    del batches, params
     torch.cuda.empty_cache()
+    k4_train = phase_train_attention(smi)
+    phase_train_golden(smi)
+    phase_train_cli(smi)
+    log("train.path", seconds=round(time.perf_counter() - t_train, 3), card=smi)
     phase_lm_golden()
     # Path 10: mixtral-8x7b at full width (depth cut), the MoE FFN and K4's
     # sliding window.
@@ -3217,7 +3655,10 @@ def main() -> int:
     del params, tokens
     torch.cuda.empty_cache()
     phase_moe_golden(smi)
-    k4["launches_by_path"] = {"lm.prefill": k4["launches"], "moe.prefill": k4_moe["launches"]}
+    k4["launches_by_path"] = {"lm.prefill": k4["launches"], "moe.prefill": k4_moe["launches"],
+                              "train.step": train["launches"],
+                              "train.k4": k4_train["launches"]}
+    k4["trainable"] = k4_train["trainable"]
     import torch.distributed as dist
 
     dist.destroy_process_group()
@@ -3228,7 +3669,8 @@ def main() -> int:
         kern["launches_by_path"].update(
             {path: n[key] for path, n in path9.items() if n[key]})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path", "moe_window")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path", "moe_window",
+            "trainable")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern}
                                   for kern in (k1, k2, k3, k4)]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -49,6 +49,12 @@ capacity, where tokens drop: each row's last-position logits, each
 position's largest logit, ``moe_loss`` and each layer's ``moe_drop_frac``
 (from the layers run one by one, whose ``_ffn_block`` returns the MoE aux).
 
+The ``lm_train`` section holds one training step of each of the five LM
+archs' REDUCED configs at float32 compute from the numpy-drawn parameters
+(:data:`LM_TRAIN_CASE`: a seeded 2 x 64 batch, AdamW at lr 1e-3, weight
+decay 0.01, fp32 moments): ``lm_loss`` and its metrics, the step's grad
+norm, and each parameter leaf's sum after the step and of its update.
+
 The ``serve`` section holds per-seed serving on the two graphs, each case
 named ``<kind>.<graph>``: ``engine.bfs`` and ``engine.local`` are the
 reference ``DensestQueryEngine``'s answers (radius 1, 128 ego nodes, 16
@@ -796,6 +802,118 @@ def lm_moe_mismatch(got: dict, want: dict, tol: float = LM_LOGITS_TOL):
     return None
 
 
+# -- the LM training entries (REDUCED configs of the five LM archs, float32) --
+
+LM_TRAIN_ARCHS = ("llama3.2-3b", "starcoder2-7b", "qwen2-72b", "mixtral-8x7b",
+                  "llama4-maverick-400b-a17b")
+LM_TRAIN_CASE = dict(batch=2, seq=64, lr=1e-3, weight_decay=0.01)
+# The first AdamW step's delta g / (|g| + eps) turns a gradient's rounding
+# into up to 2 lr of one element's update wherever |g| is near eps (a few
+# elements in 10^4, tests/test_torch_train.py): a leaf's sum after the step
+# is held to rtol 2e-5 plus 8 lr, four such elements at their bound.
+LM_TRAIN_SUM_ATOL = 8 * LM_TRAIN_CASE["lr"]
+
+
+def lm_train_batch() -> np.ndarray:
+    """``[batch, seq + 1]`` tokens: the inputs and, shifted by one, the labels."""
+    c = LM_TRAIN_CASE
+    return np.random.default_rng(3).integers(0, 512, (c["batch"], c["seq"] + 1),
+                                             dtype=np.int32)
+
+
+def lm_train_record(total, metrics, grad_norm, params_before, params_after) -> dict:
+    """The loss and its metrics, the grad norm, and each leaf's sum after one
+    AdamW step and of that step's update (leaves as (path, array) pairs)."""
+    before = dict(params_before)
+    return {
+        "total": float(total),
+        "metrics": {k: float(v) for k, v in sorted(metrics.items())},
+        "grad_norm": float(grad_norm),
+        "param_sums": {k: float(np.asarray(a, np.float64).sum()) for k, a in params_after},
+        "update_sums": {k: float((np.asarray(a, np.float64) - np.asarray(before[k], np.float64)
+                                  ).sum()) for k, a in params_after},
+    }
+
+
+def reference_lm_train_entry(arch: str) -> dict:
+    """One training entry, computed by the JAX package: ``lm_loss`` and one
+    jitted ``make_train_step`` (AdamW, fp32 moments) from the numpy-drawn
+    parameters."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_arch
+    from repro.models.transformer import lm_loss
+    from repro.optim import AdamWConfig, init_state
+    from repro.train.step import make_loss_fn, make_train_step
+    from repro_torch.configs import get_arch as port_arch
+
+    c = LM_TRAIN_CASE
+    spec = get_arch(arch)
+    cfg = dataclasses.replace(spec.reduced_config, compute_dtype=jnp.float32)
+    params = jax.tree.map(jnp.asarray, lm_params(port_arch(arch).reduced_config))
+    toks = lm_train_batch()
+    batch = {"tokens": jnp.asarray(toks[:, :-1]), "labels": jnp.asarray(toks[:, 1:])}
+    total, metrics = lm_loss(params, cfg, batch)
+    opt = AdamWConfig(lr=c["lr"], weight_decay=c["weight_decay"])
+    step = jax.jit(make_train_step(make_loss_fn(spec, "train", cfg=cfg), opt))
+    new, _, om = step(params, init_state(params, opt), batch)
+    flat = lambda t: [(jax.tree_util.keystr(k), np.asarray(a))  # noqa: E731
+                      for k, a in jax.tree_util.tree_flatten_with_path(t)[0]]
+    return lm_train_record(total, metrics, om["grad_norm"], flat(params), flat(new))
+
+
+def port_lm_train_entry(arch: str, device) -> dict:
+    """The port's answer for one training entry on ``device``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import lm_loss, params_from_reference
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train.step import make_loss_fn, make_train_step
+
+    c = LM_TRAIN_CASE
+    spec = get_arch(arch)
+    cfg = dataclasses.replace(spec.reduced_config, compute_dtype=torch.float32)
+    params = params_from_reference(lm_params(cfg), cfg, device)
+    toks = torch.as_tensor(lm_train_batch(), device=device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    with torch.no_grad():
+        total, metrics = lm_loss(params, cfg, batch)
+    before = [(k, a.cpu().numpy().copy()) for k, a in tree.leaves_with_paths(params)]
+    opt = AdamWConfig(lr=c["lr"], weight_decay=c["weight_decay"])
+    new, _, om = make_train_step(make_loss_fn(spec, "train", cfg=cfg), opt)(
+        params, init_state(params, opt), batch)
+    after = [(k, a.cpu().numpy()) for k, a in tree.leaves_with_paths(new)]
+    return lm_train_record(total.item(), {k: v.item() for k, v in metrics.items()},
+                           om["grad_norm"].item(), before, after)
+
+
+def lm_train_mismatch(got: dict, want: dict, tol: float = LM_LOGITS_TOL):
+    """None if ``got`` meets ``want`` (the loss, its metrics and the grad
+    norm within rtol=atol ``tol``; each leaf's sums within rtol ``tol``
+    plus LM_TRAIN_SUM_ATOL), else a message naming the first difference."""
+    scalars = [("total", got["total"], want["total"]),
+               ("grad_norm", got["grad_norm"], want["grad_norm"])]
+    scalars += [(f"metrics.{k}", got["metrics"].get(k), v) for k, v in want["metrics"].items()]
+    for name, g, w in scalars:
+        if g is None or abs(g - w) > tol * (1 + abs(w)):
+            return f"{name}: {g} != {w} past rtol=atol={tol}"
+    for key in ("param_sums", "update_sums"):
+        if sorted(got[key]) != sorted(want[key]):
+            return f"{key}: leaves {sorted(got[key])} != {sorted(want[key])}"
+        for leaf, w in want[key].items():
+            g = got[key][leaf]
+            if abs(g - w) > tol * abs(w) + LM_TRAIN_SUM_ATOL:
+                return f"{key}[{leaf}]: {g} != {w} past rtol {tol} + atol {LM_TRAIN_SUM_ATOL}"
+    return None
+
+
 def compute() -> dict:
     return {
         "eps": EPS,
@@ -836,6 +954,10 @@ def compute() -> dict:
                      "prompt_lens": list(LM_MOE_CASE["prompt_lens"])},
             "answers": {arch: reference_lm_moe_entry(arch) for arch in LM_MOE_ARCHS},
         },
+        "lm_train": {
+            "seed": LM_SEED, "case": LM_TRAIN_CASE,
+            "answers": {arch: reference_lm_train_entry(arch) for arch in LM_TRAIN_ARCHS},
+        },
     }
 
 
@@ -860,6 +982,8 @@ def main() -> int:
         print(arch, "tokens", entry["tokens"], "moe_loss", entry["moe_loss"],
               "drop", entry["moe_drop_frac"], "least margin",
               min(min(m) for m in entry["margins"]))
+    for arch, entry in golden["lm_train"]["answers"].items():
+        print(arch, "train total", entry["total"], "grad_norm", entry["grad_norm"])
     return 0
 
 

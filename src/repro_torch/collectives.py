@@ -14,11 +14,15 @@ import torch
 import torch.distributed as dist
 
 
-def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """Sums ``x`` in place over ``group`` and returns it."""
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """Reduces ``x`` in place over ``group`` (``op`` 'sum' or 'max') and
+    returns it."""
     all_reduce.count += 1
     all_reduce.bytes += x.numel() * x.element_size()
-    dist.all_reduce(x, group=group)
+    dist.all_reduce(x, op=_OPS[op], group=group)
     return x
 
 

@@ -5,7 +5,7 @@ edge-sharded graphs at the paper's experimental scales (Table 1).
 The shapes size the port's benchmarks (``--shape flickr_sm``) and
 ``chip_smoke.py``'s graphs.  The reference's dry-run cell, which lowers one
 full peel with edges sharded over every mesh axis, waits for the port's
-launch layer (ROADMAP Queue 1 item 12)."""
+launch layer (ROADMAP Queue 1 item 12.3)."""
 
 from __future__ import annotations
 

@@ -3,7 +3,7 @@
 
 ``densest-mapreduce`` is registered for its shapes and config, which the
 benchmarks read; its launch dry-run waits for the port's launch layer
-(ROADMAP Queue 1 item 12), so ``repro_torch.launch`` has no ``dryrun``."""
+(ROADMAP Queue 1 item 12.3), so ``repro_torch.launch`` has no ``dryrun``."""
 
 from __future__ import annotations
 
@@ -13,11 +13,11 @@ from repro_torch.configs.base import ArchSpec
 
 # The reference's other archs, and the ROADMAP item that ports each.
 NOT_PORTED = {
-    "mace": "the GNN family, ROADMAP Queue 1 item 12",
-    "egnn": "the GNN family, ROADMAP Queue 1 item 12",
-    "graphsage-reddit": "the GNN family, ROADMAP Queue 1 item 12",
-    "equiformer-v2": "the GNN family, ROADMAP Queue 1 item 12",
-    "two-tower-retrieval": "the recsys family, ROADMAP Queue 1 item 12",
+    "mace": "the GNN family, ROADMAP Queue 1 item 12.2",
+    "egnn": "the GNN family, ROADMAP Queue 1 item 12.2",
+    "graphsage-reddit": "the GNN family, ROADMAP Queue 1 item 12.2",
+    "equiformer-v2": "the GNN family, ROADMAP Queue 1 item 12.2",
+    "two-tower-retrieval": "the recsys family, ROADMAP Queue 1 item 12.2",
 }
 
 

@@ -6,9 +6,10 @@ grouped-query attention over the model's ``[B, S, H, D]`` tensors.
 (``csrc/flash_attention.cu``) on a CUDA tensor, the plain version
 (``ref.py``) on a CPU tensor.  ``flash_attention.launches`` counts the
 kernel's calls (one per call: on bfloat16 the tile plan and the attention
-are two launches on the stream).  The reference's training wrapper
-(``flash_attention_trainable``, K4's forward with the chunked XLA
-backward) comes with the port's training path.
+are two launches on the stream).  K4 has no backward: under autograd
+:func:`flash_attention` raises rather than return an output with no
+gradient, and :func:`flash_attention_trainable` is the trainable route
+(K4's forward, the chunked path's backward), as in the reference.
 """
 
 from __future__ import annotations
@@ -171,6 +172,9 @@ def flash_attention(
     ragged edge instead of padding, and neither changes the output of a
     real row.  A row with no allowed key (never on the model's paths) is 0
     from the kernel and the mean of v from the plain version.
+
+    Under autograd (grad mode on and q, k or v requiring grad) it raises
+    ``RuntimeError`` on both routes: use :func:`flash_attention_trainable`.
     """
     if kv_valid is not None:
         raise NotImplementedError(
@@ -178,6 +182,15 @@ def flash_attention(
             "validity uses the XLA path"
         )
     _check(q, k, v, q_positions, kv_positions, window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        # The kernel writes into an empty tensor: its output would carry no
+        # grad_fn and q, k, v would silently get no gradient.  Both routes
+        # raise, so the CPU shows what the card does (the reference cannot
+        # differentiate its Pallas call either).
+        raise RuntimeError(
+            "flash_attention has no backward: call it under torch.no_grad() or "
+            "torch.inference_mode(), or train through flash_attention_trainable "
+            "(K4's forward with the chunked path's backward)")
     if not use_kernel(q):
         return flash_attention_ref(q, k, v, q_positions, kv_positions, window=window)
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -194,3 +207,44 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+class _FlashTrainable(torch.autograd.Function):
+    """K4's forward; the backward is the vjp of the chunked path
+    (``models.attention._chunked_gqa``) at the backward's chunk sizes,
+    re-run from q, k, v: K4's output is not used in it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, kv_positions, window, bwd_q_chunk, bwd_kv_chunk):
+        ctx.save_for_backward(q, k, v, q_positions, kv_positions)
+        ctx.chunks = (window, bwd_q_chunk, bwd_kv_chunk)
+        # Grad mode is off inside forward, so this is K4's plain call.
+        return flash_attention(q, k, v, q_positions=q_positions, kv_positions=kv_positions,
+                               window=window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.models.attention import chunked_vjp
+
+        q, k, v, q_positions, kv_positions = ctx.saved_tensors
+        window, q_chunk, kv_chunk = ctx.chunks
+        dq, dk, dv = chunked_vjp(q, k, v, dout, q_positions=q_positions,
+                                 kv_positions=kv_positions, window=window,
+                                 q_chunk=q_chunk, kv_chunk=kv_chunk)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_trainable(
+    q, k, v, *, q_positions, kv_positions, window=None,
+    bwd_q_chunk: int = 512, bwd_kv_chunk: int = 1024,
+):
+    """K4's forward (the kernel on a CUDA tensor, its plain version on a CPU
+    tensor) glued to the chunked path's backward by a
+    ``torch.autograd.Function``: the reference's training route.  The
+    backward re-runs ``_chunked_gqa`` on the grouped q, k, v at
+    ``bwd_q_chunk`` x ``bwd_kv_chunk`` and takes its vjp (the per-chunk
+    recompute from the saved log-sum-exp), as the reference does.  The
+    reference's Pallas tile arguments (``block_q``, ``block_kv``,
+    ``interpret``) are not taken: the kernel picks its own tiles."""
+    return _FlashTrainable.apply(q, k, v, q_positions, kv_positions, window,
+                                 bwd_q_chunk, bwd_kv_chunk)

@@ -1,2 +1,2 @@
 """Drivers of the port (counterpart of ``repro.launch``): the LM serving
-CLI so far."""
+CLI (``serve.py``) and the training CLI (``train.py``)."""

@@ -89,3 +89,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ----------------------- losses & metrics -----------------------------------
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None, z_loss: float = 0.0):
+    """Token-level cross entropy with an optional z-loss, logits promoted to
+    f32: ``(mean loss, {"loss", "accuracy", "tokens"})``.
+
+    logits ``[..., V]``; labels int ``[...]``; mask broadcastable to labels
+    (the token count is its sum, at least 1)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse.square()
+    mask = torch.ones_like(loss) if mask is None else mask.float()
+    denom = mask.sum().clamp_min(1.0)
+    mean = (loss * mask).sum() / denom
+    acc = ((logits.argmax(-1) == labels).float() * mask).sum() / denom
+    return mean, {"loss": mean, "accuracy": acc, "tokens": denom}

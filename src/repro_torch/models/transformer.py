@@ -3,19 +3,22 @@ GQA + RoPE + (SWA | full) attention, SwiGLU or GELU dense MLP or the MoE FFN
 (``models/moe.py``).
 
 One implementation covers llama3.2-3b, starcoder2-7b, qwen2-72b, mixtral-8x7b
-and llama4-maverick-400b-a17b via :class:`TransformerConfig`.  Inference paths, all under
-``torch.inference_mode()``:
+and llama4-maverick-400b-a17b via :class:`TransformerConfig`.  Paths:
 
-  forward()      full-sequence causal LM (scoring)
+  forward()      full-sequence causal LM (scoring), under inference_mode
+  lm_loss()      the training loss over the same layer loop, grad enabled
   prefill()      fills a KV cache, returns last-position logits
   decode_step()  one-token decode against the cache (dense or rolling/SWA)
 
 Parameters are a nested dict in the reference's layout, layers stacked on
 axis 0 (``params["layers"]["attn"]["wq"]["w"]`` is ``[L, d_model, d_q]``),
-so :func:`params_from_reference` is a copy of the JAX tree.  What the
-reference does that has nothing to do here is dropped: ``shard(...)`` is the
-identity outside a mesh (the mesh slice brings sharding), ``remat`` changes
-no output of inference, and the layer scan is a Python loop.
+so :func:`params_from_reference` is a copy of the JAX tree.  The layer scan
+is a Python loop (:func:`_layers`); ``remat`` is
+``torch.utils.checkpoint`` around each layer when grad is on (the
+reference's ``jax.checkpoint`` of the scan body) and changes no output.
+``shard(...)`` is the identity outside a mesh and is dropped.  A stacked
+leaf may also be a sequence of per-layer tensors (``layer_params`` takes
+``node[i]`` of either): the train step passes per-layer views that way.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.graph.edgelist import Device, resolve_device
 from repro_torch.models.attention import (
@@ -35,7 +39,9 @@ from repro_torch.models.attention import (
     gqa_attention,
     lengths,
 )
-from repro_torch.models.common import apply_rope, dense, layernorm, rmsnorm, silu, trunc_normal
+from repro_torch.models.common import (
+    apply_rope, dense, layernorm, rmsnorm, silu, softmax_cross_entropy, trunc_normal,
+)
 from repro_torch.models.moe import MoEConfig, moe_apply, moe_spec
 
 
@@ -59,7 +65,7 @@ class TransformerConfig:
     compute_dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
     remat: bool = True
-    attn_impl: str = "xla"  # xla | pallas
+    attn_impl: str = "xla"  # xla | xla_chunked | pallas | auto
     q_chunk: int = 512  # flash chunk sizes (xla_chunked / auto path)
     kv_chunk: int = 1024
     z_loss: float = 1e-4
@@ -187,7 +193,9 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator, device: Devi
         t = torch.empty(shape, dtype=dt, device=dev)
         return t.normal_(0.0, 1.0, generator=generator).mul_(std)
 
-    with torch.inference_mode():
+    # no_grad, not inference_mode: inference tensors cannot be saved for
+    # backward, so lm_loss on them would raise; serving reads them the same.
+    with torch.no_grad():
         return _map_spec(param_spec(cfg), draw)
 
 
@@ -210,7 +218,8 @@ def params_from_reference(tree, cfg: TransformerConfig, device: Device = None):
 
 
 def layer_params(params, i: int):
-    """Layer ``i``'s parameters: views into the stacked tensors."""
+    """Layer ``i``'s parameters: views into the stacked tensors (or item
+    ``i`` of a per-layer sequence)."""
     def pick(node):
         return {k: pick(v) for k, v in node.items()} if isinstance(node, dict) else node[i]
 
@@ -244,6 +253,7 @@ def _attention_block(cfg, p, x, positions):
         q, k, v,
         q_positions=positions, kv_positions=positions,
         window=cfg.window, impl=cfg.attn_impl,
+        q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
     )
     out = dense(p["attn"]["wo"], out.reshape(b, s, cfg.d_q), cd)
     return x + out.to(x.dtype), k, v
@@ -287,23 +297,60 @@ def _logits(cfg, params, x) -> torch.Tensor:
     return h @ params["lm_head"]["w"].to(cd).float()
 
 
+def _layer(cfg, p, x, positions):
+    """One layer: (x', moe_aux + moe_z, 0 without experts)."""
+    x, _, _ = _attention_block(cfg, p, x, positions)
+    x, aux = _ffn_block(cfg, p, x)
+    if not aux:
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux["moe_aux"] + aux["moe_z"]
+
+
+def _layers(params, cfg: TransformerConfig, tokens: torch.Tensor):
+    """The layer loop of :func:`forward` and :func:`lm_loss`: (final
+    residual stream, moe_loss summed in layer order as the reference's scan
+    carries it).  With grad on and ``cfg.remat``, each layer is one
+    ``torch.utils.checkpoint`` region: only its input is kept, the rest is
+    recomputed in the backward."""
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
+    x = _embed(cfg, params, tokens)
+    moe_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(cfg.n_layers):
+        p = layer_params(params, i)
+        if remat:
+            x, layer_loss = torch.utils.checkpoint.checkpoint(
+                _layer, cfg, p, x, positions, use_reentrant=False)
+        else:
+            x, layer_loss = _layer(cfg, p, x, positions)
+        moe_loss = moe_loss + layer_loss
+    return x, moe_loss
+
+
 @torch.inference_mode()
 def forward(params, cfg: TransformerConfig, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Causal LM forward: tokens int[B, S] -> (logits f32[B, S, V], moe_loss),
     on the tokens' device; moe_loss is the layers' ``moe_aux + moe_z``
     summed in layer order, as the reference's scan carries it (0 without
     experts)."""
-    b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
-    x = _embed(cfg, params, tokens)
-    moe_loss = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        p = layer_params(params, i)
-        x, _, _ = _attention_block(cfg, p, x, positions)
-        x, aux = _ffn_block(cfg, p, x)
-        if aux:
-            moe_loss = moe_loss + (aux["moe_aux"] + aux["moe_z"])
+    x, moe_loss = _layers(params, cfg, tokens)
     return _logits(cfg, params, x), moe_loss
+
+
+def lm_loss(params, cfg: TransformerConfig, batch) -> Tuple[torch.Tensor, dict]:
+    """The training loss, grad enabled: ``(total, metrics)`` with total =
+    the token-mean cross entropy (+ z-loss) + moe_loss; metrics ``loss``,
+    ``accuracy``, ``tokens``, ``moe_loss`` and ``total_loss``.  ``batch``
+    holds ``tokens`` and ``labels`` (int ``[B, S]``) and an optional
+    ``mask``."""
+    x, moe_loss = _layers(params, cfg, batch["tokens"])
+    loss, metrics = softmax_cross_entropy(_logits(cfg, params, x), batch["labels"],
+                                          batch.get("mask"), z_loss=cfg.z_loss)
+    total = loss + moe_loss
+    metrics["moe_loss"] = moe_loss
+    metrics["total_loss"] = total
+    return total, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -677,6 +677,56 @@ def test_reduced_prefill_on_card_equals_cpu(cuda, arch, window):
                                    rtol=2.0 ** -7, atol=2e-5)
 
 
+def test_flash_attention_refuses_autograd_on_card(cuda):
+    """Under autograd K4 raises on the card as on the CPU (its output would
+    carry no grad_fn); with grad off it launches once."""
+    b, s, hq, hkv, d = 1, 128, 4, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=cuda) for h in (hq, hkv, hkv))
+    pos = torch.arange(s, dtype=torch.int32, device=cuda)
+    before = flash_attention.launches
+    with pytest.raises(RuntimeError, match="flash_attention_trainable"):
+        flash_attention(q.requires_grad_(), k, v, q_positions=pos, kv_positions=pos)
+    assert flash_attention.launches == before
+    with torch.no_grad():
+        flash_attention(q, k, v, q_positions=pos, kv_positions=pos)
+    assert flash_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_trainable_on_card(cuda, dtype):
+    """flash_attention_trainable on the card: K4 once, dq/dk/dv bitwise the
+    chunked vjp at the same chunks; f32 within rtol 2e-4 / atol 1e-5 of
+    dense autodiff (O(1) cotangents)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_trainable
+    from repro_torch.models.attention import _chunked_gqa, gqa_attention
+
+    b, s, hq, hkv, d = 1, 300, 6, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, w = (torch.randn(b, s, h, d, generator=g, device=cuda).to(dtype)
+                  for h in (hq, hkv, hkv, hq))
+    pos = torch.arange(s, dtype=torch.int32, device=cuda)
+
+    def grads(fn):
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(fn(*xs), xs, w)
+
+    before = flash_attention.launches
+    got = grads(lambda a, b_, c: flash_attention_trainable(
+        a, b_, c, q_positions=pos, kv_positions=pos, bwd_q_chunk=64, bwd_kv_chunk=128))
+    assert flash_attention.launches == before + 1
+    chunked = grads(lambda a, b_, c: _chunked_gqa(
+        a, b_, c, q_positions=pos, kv_positions=pos, kv_valid=None, window=None,
+        q_chunk=64, kv_chunk=128))
+    for x, y in zip(got, chunked):
+        assert torch.equal(x, y)
+    if dtype == torch.float32:
+        dense = grads(lambda a, b_, c: gqa_attention(a, b_, c, q_positions=pos,
+                                                     kv_positions=pos, impl="xla"))
+        for x, y in zip(got, dense):
+            torch.testing.assert_close(x, y, rtol=2e-4, atol=1e-5)
+
+
 def _numpy_tree(params):
     if isinstance(params, dict):
         return {k: _numpy_tree(v) for k, v in params.items()}

@@ -3,7 +3,8 @@ tests/fixtures/torch_port/golden.json (cells exact, pallas, sketch and
 turnstile, on two graphs; Algorithms 2 and 3 and an eps sweep; the
 semi-streaming substrate; the §5.2 mesh substrate on 4 devices; per-seed
 serving in both extraction modes and the local front door; the REDUCED
-llama3.2-3b's prefill logits, greedy tokens and margins) is recomputed with ``repro`` here, and the port's CPU
+llama3.2-3b's prefill logits, greedy tokens and margins; one training
+step of each LM arch's REDUCED config) is recomputed with ``repro`` here, and the port's CPU
 answers meet it too (``chip_smoke.py`` holds the port's CUDA answers
 against the same file, on a machine without JAX)."""
 
@@ -134,3 +135,23 @@ def test_lm_golden_matches_reference(case):
 def test_port_cpu_meets_lm_golden(case):
     got = golden.port_lm_entry(case, "cpu")
     assert golden.lm_mismatch(got, _load()["lm"]["answers"][case]) is None
+
+
+# -- the LM training entries (the five LM archs' REDUCED configs, float32) -----
+
+
+@pytest.mark.parametrize("arch", golden.LM_TRAIN_ARCHS)
+def test_lm_train_golden_matches_reference(arch):
+    """The JAX package recomputes the entry: the loss, its metrics and the
+    grad norm within 1e-6, the leaf sums within 1e-6 plus the sums' own
+    allowance (XLA's CPU code may sum in another order on another machine)."""
+    fixture = _load()["lm_train"]
+    assert fixture["seed"] == golden.LM_SEED and fixture["case"] == golden.LM_TRAIN_CASE
+    want = fixture["answers"][arch]
+    assert golden.lm_train_mismatch(golden.reference_lm_train_entry(arch), want, tol=1e-6) is None
+
+
+@pytest.mark.parametrize("arch", golden.LM_TRAIN_ARCHS)
+def test_port_cpu_meets_lm_train_golden(arch):
+    got = golden.port_lm_train_entry(arch, "cpu")
+    assert golden.lm_train_mismatch(got, _load()["lm_train"]["answers"][arch]) is None
