@@ -5,7 +5,7 @@
 
 Builds the port's four CUDA kernels from the sources in this checkout (one
 ``nvcc`` each, all started together), holds each against its plain PyTorch
-version on the card, then drives the port's eleven paths through the
+version on the card, then drives the port's twelve paths through the
 entry points a user calls:
 
 * Algorithm 1 on the geometric ladder, ``solve(edges,
@@ -70,7 +70,17 @@ entry points a user calls:
   backward) at the same attention shape against the chunked vjp and dense
   autodiff; the golden training entries of the five LM archs' REDUCED
   configs; and ``python -m repro_torch.launch.train`` killed and resumed in
-  child processes, bitwise.
+  child processes, bitwise;
+* the GNN and recsys families at their published widths (no kernel of
+  K1-K4: gathers, ``index_add_`` and GEMMs): graphsage-reddit on the
+  232,965-node, 114.6M-edge minibatch_lg graph through the layered sampler
+  and full batch on ogb_products (2.45M nodes, 61.9M edges), each GNN arch
+  on 128 molecules, equiformer-v2 on full_graph_sm, each step 1 at bf16
+  against f32 and a control, three train steps; mace's and egnn's
+  invariance checks; the two-tower model's serving, retrieval over 1M
+  candidates and training at a 32,768 batch; the tiled neighbor sum on the
+  NCCL mesh; examples/torch_port/community_gnn.py; the golden ``gnn_train``
+  entries; and ``launch.train`` for each of the five archs.
 
 Answers are checked against the exact backend, the plain versions, the
 port on the CPU and the JAX package's golden fixture
@@ -3515,6 +3525,631 @@ def phase_examples() -> dict:
     return {k: sum(v[k] for v in by_example.values()) for k in ("k1", "k2", "k3", "k4")}
 
 
+# -- Path 12: the GNN and recsys families at full width (no kernel of K1-K4:
+# gathers, index_add_ and GEMMs) ---------------------------------------------
+
+GNN_STEPS = 3
+# Step 1 at bf16 compute against the same step at f32 compute on the card
+# (both accumulate their segment sums in f32: common.segment_sum): the
+# loss's error relative to 1 + |loss|, the grad norm's relative error and
+# the gradient tree's relative L2 error.  Each cell's limits sit between
+# the drift of bf16 compute there and its control (gnn_control), which
+# must exceed every one of them; PERF.md has the readings on both sides.
+# equiformer-v2 x full_graph_sm holds the gradients only: at random
+# weights its loss and grad norm move less when half the edges are lost
+# (2.3e-4, 1.5e-4) than under bf16 rounding (3.1e-4, 1.9e-4); both are
+# logged.  cell -> (control, limits)
+GNN_CELLS = {
+    "gnn.minibatch": ("drop16", dict(loss_rel_err=2e-5, grad_norm_rel_err=1e-3,
+                                     grad_rel_l2=0.1)),
+    "gnn.products": ("drop16", dict(loss_rel_err=1e-4, grad_norm_rel_err=5e-3,
+                                    grad_rel_l2=2e-2)),
+    "gnn.molecule.mace": ("unmasked", dict(loss_rel_err=1e-2, grad_norm_rel_err=1e-2,
+                                           grad_rel_l2=1e-2)),
+    "gnn.molecule.egnn": ("drop16", dict(loss_rel_err=1e-2, grad_norm_rel_err=1e-2,
+                                         grad_rel_l2=1e-2)),
+    "gnn.molecule.equiformer-v2": ("unmasked", dict(loss_rel_err=5e-3, grad_norm_rel_err=5e-3,
+                                                    grad_rel_l2=2e-2)),
+    "gnn.molecule.graphsage-reddit": ("drop16", dict(loss_rel_err=1e-4,
+                                                     grad_norm_rel_err=1e-2,
+                                                     grad_rel_l2=0.1)),
+    "gnn.cora.equiformer-v2": ("drop4", dict(grad_rel_l2=2.5e-2)),
+    "recsys.train": ("unmasked", dict(loss_rel_err=2e-5, grad_norm_rel_err=1e-3,
+                                      grad_rel_l2=1.5e-2)),
+}
+# f32 compute on the card: energies under a rotation plus a translation and
+# EGNN's coordinates under a rotation, relative to 1 + the largest |value|
+# (the reference's property tests hold 1e-4); the control scales the
+# positions by 1.1, which no isometry does.
+GNN_INVARIANCE_TOL = 1e-4
+RECSYS_TRAIN_BATCH = 32_768  # train_batch's 65,536 cut in half (PERF.md §4)
+RECSYS_SERVE = {"serve_p99": 512, "serve_bulk": 262_144}
+RECSYS_RETRIEVAL = (1_000_000, 100)  # retrieval_cand: candidates, top k
+# bf16 serve scores against f32 ones, the largest |difference| over the
+# largest |score| (scores are cosines over the temperature 0.05).
+RECSYS_SCORE_TOL = 2e-2
+GNN_KERNEL_KINDS = {
+    "gemm": ("gemm", "xmma", "nvjet", "cutlass", "Kernel2"),
+    "index_add": ("indexFunc", "index_add"),
+    "gather": ("indexSelect", "index_select", "index_elementwise"),
+    "scatter_reduce": ("scatter",),
+    "sort": ("sort", "Sort", "radix"),
+}
+
+
+def gnn_shape_config(arch: str, shape: str, **kw):
+    """(spec, config, shape params): the arch's published config specialized
+    to the shape's dataset (d_in, n_classes; 0 classes for molecules)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.train.step import specialize_gnn_config
+
+    spec = get_arch(arch)
+    p = dict(spec.shapes[shape].params)
+    cfg = specialize_gnn_config(spec.config, {**p, "n_classes": p.get("n_classes", 0)})
+    return spec, dataclasses.replace(cfg, **kw), p
+
+
+def pad_full_batch(batch: dict, pad_to: int = 512) -> dict:
+    """``gnn_full_batch_spec``'s padding of a drawn graph: node and edge
+    counts up to a multiple of ``pad_to``, the padding nodes isolated (zero
+    features, train_mask 0) and the padding edges masked (0 -> 0)."""
+    import torch
+
+    n, e = batch["features"].shape[0], batch["src"].shape[0]
+    dn, de = -n % pad_to, -e % pad_to
+    out = dict(batch)
+    for k in ("features", "labels", "train_mask", "positions"):
+        if k in batch:
+            v = batch[k]
+            out[k] = torch.cat([v, v.new_zeros((dn,) + tuple(v.shape[1:]))])
+    for k in ("src", "dst", "edge_mask"):
+        out[k] = torch.cat([batch[k], batch[k].new_zeros(de)])
+    return out
+
+
+def gnn_control(batch: dict, name: str) -> dict:
+    """A cell's control batch: ``drop16`` / ``drop4`` mask out every 16th /
+    4th edge (for a sampled block, the last of each root's 15 first-hop
+    neighbors), ``unmasked`` counts every edge, the masked self-loops too
+    (for the two-tower model: the history mask ignored)."""
+    import torch
+
+    if name == "unmasked":
+        key = "hist_mask" if "hist_mask" in batch else "edge_mask"
+        return {**batch, key: torch.ones_like(batch[key])}
+    if "hop1_mask" in batch:  # drop16
+        m1 = batch["hop1_mask"].clone()
+        m1[:, -1] = 0
+        return {**batch, "hop1_mask": m1, "hop2_mask": batch["hop2_mask"] * m1[:, :, None]}
+    stride = {"drop16": 16, "drop4": 4}[name]
+    idx = torch.arange(batch["edge_mask"].shape[0], device=batch["edge_mask"].device)
+    return {**batch, "edge_mask": batch["edge_mask"] & (idx % stride != 0)}
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_gnn_step1(label: str, spec, kind: str, cfg, params, batch, smi: str) -> dict:
+    """Step 1's loss, grad norm and gradients (no update) at bf16 compute
+    against f32 compute on the card, within the cell's GNN_CELLS limits,
+    and the cell's control batch at bf16 outside every one of them."""
+    import torch
+
+    from repro_torch.optim import global_norm
+    from repro_torch.train.step import loss_and_grads, make_loss_fn
+
+    control, limits = GNN_CELLS[label]
+
+    def grads(c, b):
+        (loss, _, g), wall, _, peak = _peak_run(
+            lambda: loss_and_grads(make_loss_fn(spec, kind, cfg=c), params, b))
+        return loss.item(), global_norm(g).item(), g, wall, peak
+
+    l32, n32, g32, wall32, peak32 = grads(dataclasses.replace(cfg, compute_dtype=torch.float32),
+                                          batch)
+    lb, nb, gb, wallb, peakb = grads(cfg, batch)
+    dist = _tree_dist(gb, g32)
+    del gb
+
+    def errs(loss, norm, dist):
+        return dict(loss_rel_err=abs(loss - l32) / (1 + abs(l32)),
+                    grad_norm_rel_err=_rel(norm, n32), grad_rel_l2=dist)
+
+    checks = errs(lb, nb, dist)
+    lc, nc, gc, _, _ = grads(cfg, gnn_control(batch, control))
+    ctrl = errs(lc, nc, _tree_dist(gc, g32))
+    del gc, g32
+    log(f"{label}.step1", loss_bf16=lb, loss_f32=l32, grad_norm_bf16=nb, grad_norm_f32=n32,
+        **checks, limits=limits, control={control: ctrl}, wall_ms_bf16=wallb,
+        wall_ms_f32=wall32, peak_above_inputs_mb_bf16=peakb, peak_above_inputs_mb_f32=peak32,
+        accumulator="f32 (bf16 messages summed in f32, rounded once)", card=smi)
+    hold_limits(label, checks, ctrl, limits)
+    return {"loss_bf16": lb, **checks, "control": {control: ctrl}}
+
+
+def hold_limits(label: str, checks: dict, ctrl: dict, limits: dict) -> None:
+    """Every limited check within its limit, the control past every one."""
+    over = [k for k in limits if not checks[k] <= limits[k]]
+    if over:
+        raise AssertionError(f"{label}: bf16 vs f32 past its limits: {over} ({checks})")
+    passed = [k for k in limits if not ctrl[k] > limits[k]]
+    if passed:
+        raise AssertionError(f"{label}: the control passes {passed} ({ctrl})")
+
+
+def phase_gnn_steps(label: str, spec, kind: str, cfg, params, next_batch, smi: str,
+                    profile: bool = False) -> dict:
+    """GNN_STEPS ``make_train_step`` steps (AdamW, fp32 moments, in place)
+    on ``next_batch()``'s batches: finite losses, the parameters moved;
+    then, with ``profile``, one more step under the profiler."""
+    import math
+
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.optim import AdamWConfig, global_norm, init_state
+    from repro_torch.train.step import make_loss_fn, make_train_step
+
+    opt_cfg = AdamWConfig()
+    opt = init_state(params, opt_cfg)
+    step = make_train_step(make_loss_fn(spec, kind, cfg=cfg), opt_cfg)
+    probe = [p.reshape(-1)[:4].clone() for p in tree.leaves(params)]
+    rows = []
+    for i in range(GNN_STEPS):
+        t0 = time.perf_counter()
+        batch = next_batch()
+        torch.cuda.synchronize()
+        data_ms = (time.perf_counter() - t0) * 1e3
+        (params, opt, metrics), wall, _, peak = _peak_run(lambda: step(params, opt, batch))
+        row = dict(step=i + 1, loss=metrics["loss"].item(), grad_norm=metrics["grad_norm"].item(),
+                   batch_ms=data_ms, step_ms=wall,
+                   peak_device_mb=torch.cuda.max_memory_allocated() / 2**20,
+                   peak_above_state_mb=peak)
+        log(f"{label}.step", **row, card=smi)
+        rows.append(row)
+        if not all(math.isfinite(row[k]) for k in ("loss", "grad_norm")):
+            raise AssertionError(f"{label} step {i + 1}: not finite {row}")
+    moved = any(not torch.equal(a, p.reshape(-1)[:4]) for a, p in zip(probe, tree.leaves(params)))
+    pnorm = global_norm(params).item()
+    if not moved or not math.isfinite(pnorm):
+        raise AssertionError(f"{label}: the parameters did not move or are not finite ({pnorm})")
+    out = dict(median_step_ms_2_3=statistics.median(r["step_ms"] for r in rows[1:]),
+               median_batch_ms=statistics.median(r["batch_ms"] for r in rows),
+               peak_device_mb=max(r["peak_device_mb"] for r in rows), param_norm=pnorm)
+    if out["peak_device_mb"] >= 80 * 1024:
+        raise AssertionError(f"{label}: peak {out['peak_device_mb']} MB: over 80 GB")
+    if profile:
+        batch = next_batch()
+        phase_profile(f"{label}_train_step", lambda: step(params, opt, batch),
+                      kinds=GNN_KERNEL_KINDS, card=smi)
+    del opt
+    return out
+
+
+def _gnn_params(spec, cfg, seed: int = 0):
+    import torch
+
+    from repro_torch.train.step import init_model_params
+
+    return init_model_params(spec, torch.Generator(device=DEV).manual_seed(seed), cfg=cfg,
+                             device=DEV)
+
+
+def phase_gnn_minibatch(smi: str) -> dict:
+    """graphsage-reddit x minibatch_lg: the 232,965-node, 114,615,892-edge
+    graph drawn as ``gnn_full_batch`` draws it (its features are the
+    602-wide table, 561 MB on the card), the CSR sorted on the card (229 M
+    slots), the layered sampler (1,024 roots, fanout 15-10) on the host;
+    step 1 bf16 vs f32, GNN_STEPS steps and one profiled."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import gnn_full_batch
+    from repro_torch.graph.sampler import CSRGraph, LayeredSampler
+
+    spec, cfg, p = gnn_shape_config("graphsage-reddit", "minibatch_lg")
+    t0 = time.perf_counter()
+    g = gnn_full_batch(np.random.default_rng(0), p["n_nodes"], p["n_edges"], p["d_feat"],
+                       p["n_classes"], False, device=DEV)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    csr = CSRGraph.from_edges(g["src"], g["dst"], p["n_nodes"], device=DEV)
+    csr_s = time.perf_counter() - t0
+    feats, labels = g["features"], g["labels"].cpu().numpy()
+    del g
+    torch.cuda.empty_cache()
+    sampler = LayeredSampler(csr, labels, p["batch_nodes"], tuple(p["fanout"]), seed=0)
+    sample_ms = []
+
+    def next_batch():
+        t = time.perf_counter()
+        b = next(sampler)
+        sample_ms.append((time.perf_counter() - t) * 1e3)
+        return {"feat_table": feats, **{k: torch.from_numpy(v).to(DEV) for k, v in b.items()}}
+
+    log("gnn.minibatch.graph", nodes=p["n_nodes"], edges=p["n_edges"], csr_slots=len(csr.indices),
+        feat_table_mb=feats.numel() * 4 / 2**20, gen_seconds=round(gen_s, 3),
+        csr_seconds=round(csr_s, 3), card=smi)
+    torch.cuda.reset_peak_memory_stats()
+    params = _gnn_params(spec, cfg)
+    first = next_batch()
+    s1 = phase_gnn_step1("gnn.minibatch", spec, "sampled_train", cfg, params, first, smi)
+    steps = phase_gnn_steps("gnn.minibatch", spec, "sampled_train", cfg, params, next_batch, smi,
+                            profile=True)
+    out = dict(arch="graphsage-reddit", shape="minibatch_lg", roots=p["batch_nodes"],
+               fanout=list(p["fanout"]), sampler_ms_per_batch=statistics.median(sample_ms),
+               **steps, card=smi)
+    log("gnn.minibatch", **out)
+    return {**out, **s1}
+
+
+def phase_gnn_products(mesh, smi: str) -> dict:
+    """graphsage-reddit x ogb_products, full batch: 2,449,029 nodes and
+    61,859,140 uniform edges padded to 512 as ``gnn_full_batch_spec``
+    pads; step 1 bf16 vs f32, GNN_STEPS steps and one profiled; then the
+    tiled neighbor sum (``models/gnn/dist.py``) on the one-rank NCCL mesh
+    over the same edges at width 32, f32, against the untiled oracle."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import gnn_full_batch
+
+    spec, cfg, p = gnn_shape_config("graphsage-reddit", "ogb_products")
+    t0 = time.perf_counter()
+    batch = pad_full_batch(gnn_full_batch(np.random.default_rng(0), p["n_nodes"], p["n_edges"],
+                                          p["d_feat"], p["n_classes"], False, device=DEV))
+    torch.cuda.synchronize()
+    log("gnn.products.graph", nodes=batch["features"].shape[0], edges=batch["src"].shape[0],
+        real_nodes=p["n_nodes"], real_edges=p["n_edges"],
+        gen_seconds=round(time.perf_counter() - t0, 3), card=smi)
+    params = _gnn_params(spec, cfg)
+    s1 = phase_gnn_step1("gnn.products", spec, "full_train", cfg, params, batch, smi)
+    steps = phase_gnn_steps("gnn.products", spec, "full_train", cfg, params, lambda: batch, smi,
+                            profile=True)
+    out = dict(arch="graphsage-reddit", shape="ogb_products", **steps, card=smi)
+    log("gnn.products", **out)
+    del params
+    phase_gnn_dist(batch, mesh, smi)
+    return {**out, **s1}
+
+
+def phase_gnn_dist(batch, mesh, smi: str) -> None:
+    """``make_tiled_neighbor_sum`` on a one-rank NCCL group over the
+    ogb_products edges, X [N, 32] f32 and random edge weights: Z and the
+    gradients of sum(Z * probe) with respect to X and the weights against
+    ``neighbor_sum_reference`` (rtol/atol 1e-5 values, 1e-4/1e-5 gradients,
+    the reference test's), one all-gather forward, one all-gather and one
+    all-reduce backward."""
+    import torch
+
+    from repro_torch import collectives
+    from repro_torch.models.gnn import dist
+
+    src, dst = batch["src"], batch["dst"]
+    n = batch["features"].shape[0]
+    t0 = time.perf_counter()
+    tiling = dist.build_edge_tiling(src.cpu().numpy(), dst.cpu().numpy(), n, 1)
+    tiling_s = time.perf_counter() - t0
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    x = torch.randn((tiling.n_nodes_padded, 32), device=DEV, generator=gen)
+    w = torch.rand(src.shape[0], device=DEV, generator=gen)
+    probe = torch.randn(x.shape, device=DEV, generator=gen)
+    f = dist.make_tiled_neighbor_sum(tiling, mesh, ("data",))
+
+    def run(fn):
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        with torch.enable_grad():
+            z = fn(xr, wr)
+            (z * probe).sum().backward()
+        return z.detach(), xr.grad, wr.grad
+
+    collectives.reset()
+    (z, dx, dw), wall, _, peak = _peak_run(lambda: run(f))
+    coll = (collectives.all_gather.count, collectives.all_reduce.count)
+    zr, dxr, dwr = run(lambda a, b: dist.neighbor_sum_reference(a, b, src, dst, n))
+    errs = dict(z=check_close("gnn.dist z", z, zr, 1e-5),
+                dx=_close_rt("gnn.dist dx", dx, dxr), dw=_close_rt("gnn.dist dw", dw, dwr))
+    if coll != (2, 1):
+        raise AssertionError(f"gnn.dist: collectives (all_gather, all_reduce) {coll} != (2, 1)")
+    log("gnn.dist", nodes=n, edges=src.shape[0], width=32, tiling_seconds=round(tiling_s, 3),
+        fwd_bwd_ms=wall, peak_above_inputs_mb=peak, all_gather=coll[0], all_reduce=coll[1],
+        max_abs_err=errs, equal="tiled == untiled oracle (values 1e-5, grads rtol 1e-4 / "
+        "atol 1e-5)", card=smi)
+
+
+def _close_rt(what: str, got, want, rtol: float = 1e-4, atol: float = 1e-5) -> float:
+    err = (got.double() - want.double()).abs()
+    bad = err > atol + rtol * want.double().abs()
+    if bad.any():
+        raise AssertionError(f"{what}: {int(bad.sum())} values outside rtol {rtol} atol {atol} "
+                             f"(max abs err {err.max().item()})")
+    return err.max().item()
+
+
+def _energies(arch: str, params, cfg, batch):
+    """Per-molecule energies of mace or egnn (their loss's ``e``)."""
+    from repro_torch.models.common import mlp, segment_sum, silu
+    from repro_torch.models.gnn import egnn, mace
+
+    n_graphs = batch["graph_labels"].shape[0]
+    if arch == "egnn":
+        h, _ = egnn.forward(params, cfg, batch)
+        return egnn.readout_energy(params, cfg, h, batch["graph_ids"], n_graphs)
+    h = mace.forward(params, cfg, batch)
+    e_node = mlp(params["readout"], h, act=silu, compute_dtype=cfg.compute_dtype)
+    return segment_sum(e_node[:, 0].float(), batch["graph_ids"], n_graphs)
+
+
+def phase_gnn_invariance(arch: str, params, cfg, batch, smi: str) -> None:
+    """f32 compute on the card: mace's and egnn's energies under a random
+    rotation plus a translation, egnn's coordinates under a rotation,
+    within GNN_INVARIANCE_TOL of 1 + the largest |value|; the control
+    (positions scaled by 1.1) outside it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.gnn import egnn
+
+    cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    rng = np.random.default_rng(7)
+    a = rng.standard_normal((3, 3))
+    q, r = np.linalg.qr(a)
+    q = q * np.sign(np.diag(r))
+    if np.linalg.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+    R = torch.tensor(q, dtype=torch.float32, device=DEV)
+    t = torch.tensor(rng.standard_normal(3), dtype=torch.float32, device=DEV)
+    pos = batch["positions"]
+
+    def rel(got, want):
+        return ((got - want).abs().max() / (1 + want.abs().max())).item()
+
+    with torch.no_grad():
+        e1 = _energies(arch, params, cfg, batch)
+        e2 = _energies(arch, params, cfg, {**batch, "positions": pos @ R.T + t})
+        ec = _energies(arch, params, cfg, {**batch, "positions": pos * 1.1})
+        out = dict(energy_err=rel(e2, e1), energy_control=rel(ec, e1))
+        if arch == "egnn":
+            _, x1 = egnn.forward(params, cfg, batch)
+            _, x2 = egnn.forward(params, cfg, {**batch, "positions": pos @ R.T})
+            _, xc = egnn.forward(params, cfg, {**batch, "positions": pos * 1.1})
+            out.update(coords_err=rel(x2, x1 @ R.T), coords_control=rel(xc, x1))
+    log(f"gnn.molecule.{arch}.invariance", **out, limit=GNN_INVARIANCE_TOL, card=smi)
+    for k, v in out.items():
+        if k.endswith("_err") and not v <= GNN_INVARIANCE_TOL:
+            raise AssertionError(f"{arch}: {k} {v} past {GNN_INVARIANCE_TOL}")
+        if k.endswith("_control") and v <= GNN_INVARIANCE_TOL:
+            raise AssertionError(f"{arch}: the control {k} {v} within {GNN_INVARIANCE_TOL}")
+
+
+def phase_gnn_molecule(smi: str) -> dict:
+    """Each GNN arch at its published width x molecule (128 molecules x 30
+    nodes x 64 edges, d_feat 16), energy regression: step 1 bf16 vs f32,
+    GNN_STEPS steps; mace's and egnn's invariance checks."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import _gnn_needs_positions, gnn_molecule_batch
+
+    out = {}
+    for arch in ("mace", "egnn", "equiformer-v2", "graphsage-reddit"):
+        spec, cfg, p = gnn_shape_config(arch, "molecule")
+        batch = gnn_molecule_batch(np.random.default_rng(0), p["batch"], p["n_nodes"],
+                                   p["n_edges"], p["d_feat"], _gnn_needs_positions(arch),
+                                   device=DEV)
+        torch.cuda.reset_peak_memory_stats()
+        params = _gnn_params(spec, cfg)
+        label = f"gnn.molecule.{arch}"
+        s1 = phase_gnn_step1(label, spec, "molecule_train", cfg, params, batch, smi)
+        if arch in ("mace", "egnn"):
+            phase_gnn_invariance(arch, params, cfg, batch, smi)
+        steps = phase_gnn_steps(label, spec, "molecule_train", cfg, params, lambda: batch, smi,
+                                profile=arch == "equiformer-v2")
+        out[arch] = {**steps, **s1}
+        log(label, layers=cfg.n_layers, d_hidden=cfg.d_hidden, **steps, card=smi)
+    return out
+
+
+def phase_gnn_equiformer_cora(smi: str) -> dict:
+    """equiformer-v2 at full width (12 layers, l_max 6, m_max 2, 8 heads) x
+    full_graph_sm (2,708 nodes, 10,556 edges, d_feat 1,433, 7 classes):
+    step 1 bf16 vs f32, GNN_STEPS steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import gnn_full_batch
+
+    spec, cfg, p = gnn_shape_config("equiformer-v2", "full_graph_sm")
+    batch = gnn_full_batch(np.random.default_rng(0), p["n_nodes"], p["n_edges"], p["d_feat"],
+                           p["n_classes"], True, device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    params = _gnn_params(spec, cfg)
+    s1 = phase_gnn_step1("gnn.cora.equiformer-v2", spec, "full_train", cfg, params, batch,
+                         smi)
+    steps = phase_gnn_steps("gnn.cora.equiformer-v2", spec, "full_train", cfg, params,
+                            lambda: batch, smi)
+    log("gnn.cora.equiformer-v2", **steps, card=smi)
+    return {**steps, **s1}
+
+
+def phase_recsys(smi: str) -> dict:
+    """two-tower-retrieval at full width (8,388,608 users, 2,097,152 items,
+    embed 256, towers 1024-512-256, history 32; 10.7 GB of f32 tables from
+    a seeded generator): ``make_recsys_serve`` at serve_p99 and serve_bulk
+    (bf16 against f32 scores), ``make_recsys_retrieval`` at retrieval_cand
+    (its top 100 against a full sort of the same scores), then train_batch
+    cut to RECSYS_TRAIN_BATCH rows: step 1 bf16 vs f32 (the control ignores
+    the history mask), GNN_STEPS steps, one profiled."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import recsys_stream
+    from repro_torch.data.synthetic import recsys_train_batch
+    from repro_torch.models import recsys
+    from repro_torch.train.step import make_recsys_retrieval, make_recsys_serve
+
+    spec = get_arch("two-tower-retrieval")
+    cfg = spec.config
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    t0 = time.perf_counter()
+    params = _gnn_params(spec, cfg)
+    torch.cuda.synchronize()
+    tables_mb = (params["user_table"].numel() + params["item_table"].numel()) * 4 / 2**20
+    log("recsys.model", users=cfg.n_users, items=cfg.n_items, embed=cfg.embed_dim,
+        towers=list(cfg.tower_dims), tables_mb=tables_mb,
+        init_seconds=round(time.perf_counter() - t0, 3), card=smi)
+    out = {}
+    for shape, rows in RECSYS_SERVE.items():
+        batch = recsys_train_batch(np.random.default_rng(1), cfg, rows, device=DEV)
+        serve, serve32 = make_recsys_serve(cfg), make_recsys_serve(f32)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            s16, s32 = serve(params, batch), serve32(params, batch)
+            sc = serve(params, {**batch, "hist_mask": torch.ones_like(batch["hist_mask"])})
+            ms = time_ms(lambda: serve(params, batch), n=10)
+        err = ((s16 - s32).abs().max() / s32.abs().max()).item()
+        ctrl = ((sc - s32).abs().max() / s32.abs().max()).item()
+        out[shape] = dict(rows=rows, ms_per_call=ms, rows_per_s=rows / ms * 1e3,
+                          score_err_bf16_vs_f32=err, control_history_mask_ignored=ctrl,
+                          limit=RECSYS_SCORE_TOL,
+                          peak_device_mb=torch.cuda.max_memory_allocated() / 2**20)
+        log(f"recsys.{shape}", **out[shape], card=smi)
+        if not torch.isfinite(s16).all() or not err <= RECSYS_SCORE_TOL < ctrl:
+            raise AssertionError(f"recsys.{shape}: {out[shape]}")
+    n_cand, k = RECSYS_RETRIEVAL
+    rng = np.random.default_rng(2)
+    query = {
+        "user_id": torch.tensor([3], dtype=torch.int32, device=DEV),
+        "hist": torch.from_numpy(rng.integers(0, cfg.n_items, (1, cfg.hist_len),
+                                              dtype=np.int32)).to(DEV),
+        "hist_mask": torch.ones((1, cfg.hist_len), device=DEV),
+        "cand_ids": torch.from_numpy(rng.integers(0, cfg.n_items, n_cand,
+                                                  dtype=np.int32)).to(DEV),
+    }
+    retrieve = make_recsys_retrieval(cfg, k=k)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        got = retrieve(params, query)
+        ms = time_ms(lambda: retrieve(params, query), n=10)
+        u = recsys.user_embedding(params, cfg, query["user_id"], query["hist"],
+                                  query["hist_mask"])
+        full = (u @ recsys.item_embedding(params, cfg, query["cand_ids"]).T)[0] / cfg.temperature
+        plain = torch.sort(full, descending=True).values[:k]
+    check_equal("recsys.retrieval top-k scores vs a full sort", got["scores"], plain)
+    out["retrieval_cand"] = dict(candidates=n_cand, k=k, ms_per_query=ms,
+                                 peak_device_mb=torch.cuda.max_memory_allocated() / 2**20,
+                                 equal="top-k scores == a full sort's first k, bitwise")
+    log("recsys.retrieval_cand", **out["retrieval_cand"], card=smi)
+    stream = recsys_stream(cfg, RECSYS_TRAIN_BATCH, seed=0, device=DEV)
+    first = next(stream)
+    out["step1"] = phase_gnn_step1("recsys.train", spec, "train", cfg, params, first, smi)
+    out["train"] = phase_gnn_steps("recsys.train", spec, "train", cfg, params,
+                                   lambda: next(stream), smi, profile=True)
+    log("recsys.train", batch=RECSYS_TRAIN_BATCH,
+        reduced="global batch 65,536 -> 32,768 (the [B, B] logits and their gradient)",
+        moments="fp32", **out["train"], card=smi)
+    del params
+    return out
+
+
+def phase_gnn_example(smi: str) -> None:
+    """examples/torch_port/community_gnn.py on the card: every community's
+    size, density and purity equal the golden fixture's (the reference
+    example's at its defaults; unit weights, so the densities bitwise), and
+    the resume from step 150 reaches step 200."""
+    import tempfile
+
+    import numpy as np
+
+    import torch_port_golden as golden
+    from repro_torch.graph.generators import planted_partition
+
+    with open(golden.GOLDEN) as f:
+        want = json.load(f)["gnn_train"]["community"]["answers"]
+    with tempfile.TemporaryDirectory(prefix="community_gnn_") as tmp:
+        t0 = time.perf_counter()
+        res = _example("community_gnn").main(["--ckpt-dir", tmp])
+        sec = time.perf_counter() - t0
+    c = golden.COMMUNITY
+    _, truth = planted_partition(n=c["n"], k=c["k"], p_in=c["p_in"], p_out=c["p_out"],
+                                 seed=c["seed"], device=DEV)
+    got = golden.community_record(res["communities"], truth)
+    if got != want:
+        raise AssertionError(f"community_gnn: {got} != the golden {want}")
+    if res["resumed"]["step"] != 200 or not np.isfinite(res["resumed"]["loss"]):
+        raise AssertionError(f"community_gnn: the resume ended at {res['resumed']}")
+    log("gnn.example.community_gnn", seconds=round(sec, 3), communities=got,
+        first_loss=res["first_loss"], loss_150=res["loss_150"],
+        loss_200=res["resumed"]["loss"], equal="communities == the JAX golden (bitwise rho)",
+        card=smi)
+
+
+def phase_gnn_golden(smi: str) -> None:
+    """The REDUCED configs of the four GNN archs and the two-tower model on
+    the card (float32 compute) meet the JAX golden fixture's ``gnn_train``
+    entries (loss, metrics, grad norm, leaf sums after one AdamW step; the
+    two-tower serve and top-k scores and items)."""
+    import torch_port_golden as golden
+
+    with open(golden.GOLDEN) as f:
+        fixture = json.load(f)["gnn_train"]["answers"]
+    for arch in golden.GNN_TRAIN_ARCHS:
+        got = golden.port_gnn_train_entry(arch, DEV)
+        bad = golden.gnn_train_mismatch(got, fixture[arch])
+        if bad:
+            raise AssertionError(f"gnn_train golden {arch}: {bad}")
+        log("golden", gnn_train_arch=arch, equal=f"JAX golden (rtol=atol="
+            f"{golden.LM_LOGITS_TOL}; leaf sums + {golden.LM_TRAIN_SUM_ATOL})",
+            total=got["total"], grad_norm=got["grad_norm"], card=smi)
+
+
+def phase_gnn_cli(smi: str) -> None:
+    """``repro_torch.launch.train.main(['--arch', a, ...])`` for each GNN
+    arch and the two-tower model, with no ``--device``: the card."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch import train
+
+    for arch in ("mace", "egnn", "graphsage-reddit", "equiformer-v2", "two-tower-retrieval"):
+        with tempfile.TemporaryDirectory(prefix="train_cli_") as tmp:
+            out = train.main(["--arch", arch, "--steps", "3", "--batch", "64",
+                              "--ckpt-every", "3", "--ckpt-dir", tmp])
+        if out["status"] != "done" or out["step"] != 3 or not np.isfinite(out["loss"]):
+            raise AssertionError(f"launch.train --arch {arch}: {out}")
+        log("gnn.cli", arch=arch, steps=out["step"], loss=out["loss"], card=smi)
+
+
+def path_gnn(mesh, smi: str) -> dict:
+    """Path 12: every cell above, with the four kernels' counts set to 0
+    before and read after (no kernel of K1-K4 lies on this path)."""
+    import torch
+
+    t0 = time.perf_counter()
+    _zero_counts()
+    out = {"minibatch": phase_gnn_minibatch(smi)}
+    torch.cuda.empty_cache()
+    out["products"] = phase_gnn_products(mesh, smi)
+    torch.cuda.empty_cache()
+    out["molecule"] = phase_gnn_molecule(smi)
+    out["cora"] = phase_gnn_equiformer_cora(smi)
+    torch.cuda.empty_cache()
+    out["recsys"] = phase_recsys(smi)
+    torch.cuda.empty_cache()
+    phase_gnn_example(smi)
+    phase_gnn_golden(smi)
+    phase_gnn_cli(smi)
+    counts = _counts()
+    if any(counts.values()):
+        raise AssertionError(f"path 12 launched a kernel of K1-K4: {counts}")
+    log("gnn.path", seconds=round(time.perf_counter() - t0, 3), launches=counts, card=smi)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3655,9 +4290,12 @@ def main() -> int:
     del params, tokens
     torch.cuda.empty_cache()
     phase_moe_golden(smi)
+    # Path 12: the GNN and recsys families at full width (no kernel of
+    # K1-K4; the tiled neighbor sum on the NCCL mesh).
+    gnn = path_gnn(mesh, smi)
     k4["launches_by_path"] = {"lm.prefill": k4["launches"], "moe.prefill": k4_moe["launches"],
                               "train.step": train["launches"],
-                              "train.k4": k4_train["launches"]}
+                              "train.k4": k4_train["launches"], "gnn": gnn["k4"]}
     k4["trainable"] = k4_train["trainable"]
     import torch.distributed as dist
 
@@ -3668,6 +4306,7 @@ def main() -> int:
     for kern, key in ((k1, "k1"), (k2, "k2"), (k3, "k3")):
         kern["launches_by_path"].update(
             {path: n[key] for path, n in path9.items() if n[key]})
+        kern["launches_by_path"]["gnn"] = gnn[key]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path", "moe_window",
             "trainable")

@@ -55,6 +55,17 @@ archs' REDUCED configs at float32 compute from the numpy-drawn parameters
 decay 0.01, fp32 moments): ``lm_loss`` and its metrics, the step's grad
 norm, and each parameter leaf's sum after the step and of its update.
 
+The ``gnn_train`` section holds one training step of each GNN arch's and
+the two-tower model's REDUCED config at float32 compute, from parameters
+drawn by numpy (:func:`gnn_params`, the same arrays for both packages):
+the GNNs on a seeded 60-node, 240-edge ``full_train`` batch
+(:data:`GNN_TRAIN_SHAPE`), the two-tower model on a 32-row batch, AdamW at
+lr 1e-3, weight decay 0.01 (:func:`lm_train_record`'s fields); for the
+two-tower model also the serve scores of that batch and a top-10
+retrieval over 512 candidates (its scores and items).  Its ``community`` entry holds the
+communities that examples/community_gnn.py mines at its defaults (each
+one's size, density and purity).
+
 The ``serve`` section holds per-seed serving on the two graphs, each case
 named ``<kind>.<graph>``: ``engine.bfs`` and ``engine.local`` are the
 reference ``DensestQueryEngine``'s answers (radius 1, 128 ego nodes, 16
@@ -914,6 +925,248 @@ def lm_train_mismatch(got: dict, want: dict, tol: float = LM_LOGITS_TOL):
     return None
 
 
+# -- the GNN and recsys training entries (REDUCED configs, float32) ----------
+
+GNN_TRAIN_ARCHS = ("mace", "egnn", "graphsage-reddit", "equiformer-v2",
+                   "two-tower-retrieval")
+GNN_TRAIN_SHAPE = dict(n_nodes=60, n_edges=240, d_feat=12, n_classes=5)  # full_train
+RECSYS_TRAIN_BATCH = 32
+RECSYS_RETRIEVAL = dict(user_id=3, candidates=512, k=10)
+GNN_TRAIN_CASE = dict(lr=1e-3, weight_decay=0.01, seed=0, batch_seed=0)
+GNN_MODULES = {"mace": "mace", "egnn": "egnn", "graphsage-reddit": "graphsage",
+               "equiformer-v2": "equiformer_v2"}
+# The reference example examples/community_gnn.py at its defaults.
+COMMUNITY = dict(n=3000, k=4, p_in=(0.20, 0.12, 0.08, 0.05), p_out=0.0005, seed=11, eps=0.5)
+
+
+def gnn_train_config(arch: str, package: str = "port"):
+    """The arch's REDUCED config at float32 compute (a GNN's specialized to
+    :data:`GNN_TRAIN_SHAPE`), from ``repro_torch`` or ``repro``."""
+    import dataclasses
+
+    if package == "port":
+        import torch
+
+        from repro_torch.configs import get_arch
+        from repro_torch.train.step import specialize_gnn_config
+        f32 = torch.float32
+    else:
+        import jax.numpy as jnp
+
+        from repro.configs import get_arch
+        from repro.train.step import specialize_gnn_config
+        f32 = jnp.float32
+    spec = get_arch(arch)
+    cfg = spec.reduced_config
+    if spec.family == "gnn":
+        cfg = specialize_gnn_config(cfg, GNN_TRAIN_SHAPE)
+    return spec, dataclasses.replace(cfg, compute_dtype=f32)
+
+
+def gnn_params(arch: str) -> dict:
+    """The port's parameter tree for the arch (drawn on the ``meta``
+    device for its structure), each leaf drawn by
+    ``numpy.random.default_rng(seed)`` in sorted key order: a table at std
+    0.02, a vector at std 0.1, a matrix (or a stack of them) at
+    1/sqrt(fan in).  The same float32 arrays for both packages."""
+    import torch
+
+    from repro_torch.train.step import init_model_params
+
+    spec, cfg = gnn_train_config(arch)
+    like = init_model_params(spec, torch.Generator(), cfg=cfg, device="meta")
+    rng = np.random.default_rng(GNN_TRAIN_CASE["seed"])
+
+    def draw(node, key=""):
+        if isinstance(node, dict):
+            return {k: draw(node[k], k) for k in sorted(node)}
+        shape = tuple(node.shape)
+        std = (0.02 if key.endswith("_table") else 0.1 if len(shape) == 1
+               else 1.0 / np.sqrt(shape[-2]))
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    return draw(like)
+
+
+def gnn_train_batch(arch: str, package: str = "port", device="cpu"):
+    """The arch's training batch from ``make_batch`` (numpy, seed
+    ``batch_seed``); the port's on ``device``."""
+    spec, _ = gnn_train_config(arch, package)
+    shape = (dict(batch=RECSYS_TRAIN_BATCH) if spec.family == "recsys" else GNN_TRAIN_SHAPE)
+    kind = "train" if spec.family == "recsys" else "full_train"
+    if package == "port":
+        from repro_torch.data.synthetic import make_batch
+
+        return kind, make_batch(spec, kind, reduced_shape=shape,
+                                seed=GNN_TRAIN_CASE["batch_seed"], device=device)
+    from repro.data.synthetic import make_batch
+
+    return kind, make_batch(spec, kind, reduced_shape=shape, seed=GNN_TRAIN_CASE["batch_seed"])
+
+
+def retrieval_arrays(cfg) -> dict:
+    c = RECSYS_RETRIEVAL
+    rng = np.random.default_rng(GNN_TRAIN_CASE["batch_seed"] + 1)
+    return {
+        "user_id": np.asarray([c["user_id"]], np.int32),
+        "hist": rng.integers(0, cfg.n_items, (1, cfg.hist_len), dtype=np.int32),
+        "hist_mask": np.ones((1, cfg.hist_len), np.float32),
+        "cand_ids": rng.integers(0, cfg.n_items, c["candidates"], dtype=np.int32),
+    }
+
+
+def reference_gnn_train_entry(arch: str) -> dict:
+    """One entry, computed by the JAX package: the loss and one jitted
+    ``make_train_step`` (AdamW, fp32 moments) from :func:`gnn_params`; for
+    the two-tower model also the serve scores of the training batch and a
+    top-k retrieval."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.optim import AdamWConfig, init_state
+    from repro.train.step import (
+        make_loss_fn,
+        make_recsys_retrieval,
+        make_recsys_serve,
+        make_train_step,
+    )
+
+    c = GNN_TRAIN_CASE
+    spec, cfg = gnn_train_config(arch, "ref")
+    params = jax.tree.map(jnp.asarray, gnn_params(arch))
+    kind, batch = gnn_train_batch(arch, "ref")
+    loss_fn = make_loss_fn(spec, kind, cfg=cfg)
+    total, metrics = jax.jit(lambda p: loss_fn(p, batch=batch))(params)
+    opt = AdamWConfig(lr=c["lr"], weight_decay=c["weight_decay"])
+    new, _, om = jax.jit(make_train_step(loss_fn, opt))(params, init_state(params, opt), batch)
+    flat = lambda t: [(jax.tree_util.keystr(k), np.asarray(a))  # noqa: E731
+                      for k, a in jax.tree_util.tree_flatten_with_path(t)[0]]
+    out = lm_train_record(total, metrics, om["grad_norm"], flat(params), flat(new))
+    if spec.family == "recsys":
+        out["serve"] = [float(v) for v in np.asarray(
+            jax.jit(make_recsys_serve(cfg))(params, batch))]
+        got = jax.jit(make_recsys_retrieval(cfg, k=RECSYS_RETRIEVAL["k"]))(
+            params, {k: jnp.asarray(v) for k, v in retrieval_arrays(cfg).items()})
+        out["retrieval_scores"] = [float(v) for v in np.asarray(got["scores"])]
+        cand = retrieval_arrays(cfg)["cand_ids"]
+        out["retrieval_items"] = [int(v) for v in cand[np.asarray(got["indices"])]]
+    return out
+
+
+def port_gnn_train_entry(arch: str, device) -> dict:
+    """The port's answer for one entry on ``device``."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.models import common
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train.step import (
+        init_model_params,
+        make_loss_fn,
+        make_recsys_retrieval,
+        make_recsys_serve,
+        make_train_step,
+    )
+
+    c = GNN_TRAIN_CASE
+    spec, cfg = gnn_train_config(arch)
+    like = init_model_params(spec, torch.Generator(), cfg=cfg, device="meta")
+    params = common.tree_from_reference(gnn_params(arch), like, torch.device(device))
+    kind, batch = gnn_train_batch(arch, device=device)
+    loss_fn = make_loss_fn(spec, kind, cfg=cfg)
+    out = {}
+    if spec.family == "recsys":
+        with torch.no_grad():
+            out["serve"] = make_recsys_serve(cfg)(params, batch).cpu().tolist()
+            got = make_recsys_retrieval(cfg, k=RECSYS_RETRIEVAL["k"])(
+                params, {k: torch.from_numpy(v).to(device)
+                         for k, v in retrieval_arrays(cfg).items()})
+        out["retrieval_scores"] = got["scores"].cpu().tolist()
+        cand = retrieval_arrays(cfg)["cand_ids"]
+        out["retrieval_items"] = [int(v) for v in cand[got["indices"].cpu().numpy()]]
+    with torch.no_grad():
+        total, metrics = loss_fn(params, batch=batch)
+    before = [(k, a.cpu().numpy().copy()) for k, a in tree.leaves_with_paths(params)]
+    opt = AdamWConfig(lr=c["lr"], weight_decay=c["weight_decay"])
+    new, _, om = make_train_step(loss_fn, opt)(params, init_state(params, opt), batch)
+    after = [(k, a.cpu().numpy()) for k, a in tree.leaves_with_paths(new)]
+    return {**lm_train_record(total.item(), {k: v.item() for k, v in metrics.items()},
+                              om["grad_norm"].item(), before, after), **out}
+
+
+def gnn_train_mismatch(got: dict, want: dict, tol: float = LM_LOGITS_TOL):
+    """None if ``got`` meets ``want``: the training record as
+    :func:`lm_train_mismatch` holds it, the serve and top-k scores within
+    rtol=atol ``tol``, and the top-k items equal wherever the scores are
+    distinct by more than the tolerance (a tie can be ordered either way;
+    a candidate drawn twice is one item at two indices)."""
+    msg = lm_train_mismatch(got, want, tol)
+    if msg or "serve" not in want:
+        return msg
+    for key in ("serve", "retrieval_scores"):
+        g, w = np.asarray(got.get(key, [])), np.asarray(want[key])
+        if g.shape != w.shape or (np.abs(g - w) > tol * (1 + np.abs(w))).any():
+            return f"{key}: {g} != {w} past rtol=atol={tol}"
+    w = np.asarray(want["retrieval_scores"])
+    gap = np.abs(np.diff(w)) > 2 * tol * (1 + np.abs(w[1:]))
+    distinct = np.ones(len(w), bool)
+    distinct[1:] &= gap
+    distinct[:-1] &= gap
+    gi, wi = np.asarray(got["retrieval_items"]), np.asarray(want["retrieval_items"])
+    if (gi[distinct] != wi[distinct]).any():
+        return f"retrieval_items: {gi} != {wi} where the scores are distinct"
+    return None
+
+
+def community_record(comms, truth) -> list:
+    """Each mined community's size, density (the float) and purity."""
+    k = COMMUNITY["k"]
+    return [{"size": int(len(nodes)), "rho": float(rho),
+             "purity": float(np.bincount(truth[nodes], minlength=k).max() / len(nodes))}
+            for nodes, rho in comms]
+
+
+def _example(path: str, name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def reference_community_entry() -> list:
+    """examples/community_gnn.py's communities at its defaults."""
+    from repro.graph.generators import planted_partition
+
+    c = COMMUNITY
+    edges, truth = planted_partition(n=c["n"], k=c["k"], p_in=c["p_in"], p_out=c["p_out"],
+                                     seed=c["seed"])
+    mod = _example("examples/community_gnn.py", "ref_community_gnn")
+    return community_record(mod.peel_communities(edges, c["k"], eps=c["eps"]), truth)
+
+
+def port_community_entry(device) -> list:
+    """examples/torch_port/community_gnn.py's communities on ``device``."""
+    from repro_torch.graph.generators import planted_partition
+
+    c = COMMUNITY
+    edges, truth = planted_partition(n=c["n"], k=c["k"], p_in=c["p_in"], p_out=c["p_out"],
+                                     seed=c["seed"], device=device)
+    mod = _example("examples/torch_port/community_gnn.py", "port_community_gnn")
+    return community_record(mod.peel_communities(edges, c["k"], eps=c["eps"]), truth)
+
+
+def gnn_train_section() -> dict:
+    return {
+        "case": GNN_TRAIN_CASE, "shape": GNN_TRAIN_SHAPE, "recsys_batch": RECSYS_TRAIN_BATCH,
+        "retrieval": RECSYS_RETRIEVAL,
+        "answers": {arch: reference_gnn_train_entry(arch) for arch in GNN_TRAIN_ARCHS},
+        "community": {"case": {**COMMUNITY, "p_in": list(COMMUNITY["p_in"])},
+                      "answers": reference_community_entry()},
+    }
+
+
 def compute() -> dict:
     return {
         "eps": EPS,
@@ -958,11 +1211,25 @@ def compute() -> dict:
             "seed": LM_SEED, "case": LM_TRAIN_CASE,
             "answers": {arch: reference_lm_train_entry(arch) for arch in LM_TRAIN_ARCHS},
         },
+        "gnn_train": gnn_train_section(),
     }
 
 
-def main() -> int:
-    golden = compute()
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--section", default=None,
+                    help="recompute only this section (gnn_train) in the existing file")
+    args = ap.parse_args(argv)
+    if args.section is not None:
+        if args.section != "gnn_train":
+            raise SystemExit(f"--section: only gnn_train, not {args.section!r}")
+        with open(GOLDEN) as f:
+            golden = json.load(f)
+        golden["gnn_train"] = gnn_train_section()
+    else:
+        golden = compute()
     os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
     tmp = GOLDEN + ".tmp"
     with open(tmp, "w") as f:
@@ -984,6 +1251,9 @@ def main() -> int:
               min(min(m) for m in entry["margins"]))
     for arch, entry in golden["lm_train"]["answers"].items():
         print(arch, "train total", entry["total"], "grad_norm", entry["grad_norm"])
+    for arch, entry in golden["gnn_train"]["answers"].items():
+        print(arch, "train total", entry["total"], "grad_norm", entry["grad_norm"])
+    print("communities", golden["gnn_train"]["community"]["answers"])
     return 0
 
 

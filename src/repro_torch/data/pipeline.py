@@ -67,3 +67,16 @@ def lm_token_stream(vocab: int, batch: int, seq: int, seed: int = 0,
         }
 
     return SyntheticStream(make, seed=seed)
+
+
+def recsys_stream(cfg, batch: int, seed: int = 0, device: Device = None) -> SyntheticStream:
+    """``recsys_train_batch(rng, cfg, batch)`` per step, on ``device``
+    (default: the card)."""
+    from repro_torch.data.synthetic import recsys_train_batch
+
+    dev = resolve_device(device)
+
+    def make(rng, step):
+        return recsys_train_batch(rng, cfg, batch, dev)
+
+    return SyntheticStream(make, seed=seed)

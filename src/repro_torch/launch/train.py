@@ -2,7 +2,9 @@
 (counterpart of ``repro.launch.train``).
 
 Trains the arch's REDUCED config (the reference's ``--reduced`` is always
-on) on a deterministic token stream with AdamW, under the fault-tolerant
+on) on a deterministic stream (tokens for the LM family, a fresh 256-node
+graph a step for the GNN family, in-batch retrieval batches for recsys)
+with AdamW, under the fault-tolerant
 ``Trainer``: a checkpoint every ``--ckpt-every`` steps, ``--resume`` from
 the latest one, optional gradient compression with error feedback.  Runs
 on the card unless ``--device cpu`` is given.  Prints one JSON line.
@@ -21,8 +23,20 @@ def build_data(spec, cfg, batch: int, seq: int, seed: int, device):
 
     if spec.family == "lm":
         return pl.lm_token_stream(cfg.vocab, batch, seq, seed=seed, device=device)
-    raise NotImplementedError(
-        f"family {spec.family!r}: only the LM family is ported (ROADMAP Queue 1 item 12.2)")
+    if spec.family == "recsys":
+        return pl.recsys_stream(cfg, batch, seed=seed, device=device)
+    if spec.family == "gnn":
+        from repro_torch.data.synthetic import make_batch
+
+        shape = dict(n_nodes=256, n_edges=1024, d_feat=cfg.d_in,
+                     n_classes=max(cfg.n_classes, 2))
+
+        def make(rng, step):
+            return make_batch(spec, "full_train", reduced_shape=shape,
+                              seed=int(rng.integers(1 << 31)), device=device)
+
+        return pl.SyntheticStream(make, seed=seed)
+    raise ValueError(spec.family)
 
 
 def main(argv=None) -> Dict[str, Any]:
@@ -52,14 +66,24 @@ def main(argv=None) -> Dict[str, Any]:
         compress_decompress_psum,
         init_error_state,
     )
-    from repro_torch.train.step import init_model_params, loss_and_grads, make_loss_fn
+    from repro_torch.train.step import (
+        init_model_params,
+        loss_and_grads,
+        make_loss_fn,
+        specialize_gnn_config,
+    )
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     dev = resolve_device(args.device)
     spec = get_arch(args.arch)
     cfg = spec.reduced_config
+    if spec.family == "gnn":
+        cfg = specialize_gnn_config(
+            cfg, dict(d_feat=getattr(cfg, "d_in", 16),
+                      n_classes=max(getattr(cfg, "n_classes", 2), 2)))
     opt_cfg = AdamWConfig(lr=args.lr, weight_decay=0.01)
-    loss_fn = make_loss_fn(spec, "train", cfg=cfg)
+    shape_kind = "train" if spec.family != "gnn" else "full_train"
+    loss_fn = make_loss_fn(spec, shape_kind, cfg=cfg)
     comp_cfg = CompressionConfig(
         kind={"none": "none", "bf16": "bf16", "int8": "int8_ef"}[args.grad_compression])
 

@@ -1,4 +1,5 @@
-"""The LM family of the port (counterpart of ``repro.models``): the shared
-blocks (``common.py``), attention with its KV cache (``attention.py``), the
-MoE FFN (``moe.py``) and the decoder-only transformer (``transformer.py``).
-The recsys and GNN models come with later slices (ROADMAP Queue 1, item 12.2)."""
+"""The model families of the port (counterpart of ``repro.models``): the
+shared blocks and segment ops (``common.py``), attention with its KV cache
+(``attention.py``), the MoE FFN (``moe.py``), the decoder-only transformer
+(``transformer.py``), the two-tower recsys model (``recsys.py``) and the
+GNNs (``gnn/``)."""

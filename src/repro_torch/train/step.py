@@ -1,7 +1,6 @@
 """Per-family step functions (counterpart of ``repro.train.step``): the loss
 function, the train step (forward, backward, AdamW) and the serve steps of
-the LM family.  The GNN and recsys families raise: they come with ROADMAP
-Queue 1 item 12.2.
+the LM, GNN and recsys families.
 
 The train step computes gradients with two memory rules that a
 3.2 B-parameter model needs on one card (``make_train_step``):
@@ -16,13 +15,18 @@ The train step computes gradients with two memory rules that a
   gradients are whole leaves again, without a second copy.
 
 AdamW then updates the parameters and moments in place
-(``optim.apply_updates``).
+(``optim.apply_updates``).  The GNN and recsys parameters are not stacked:
+each leaf is one view.  A recsys table's gradient arrives as the sparse
+rows of its gathers (``models/recsys.py``), added into its preset buffer
+in place.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import importlib
 from functools import partial
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
@@ -31,7 +35,16 @@ from repro_torch.configs.base import ArchSpec
 from repro_torch.graph.edgelist import Device
 from repro_torch.optim import AdamWConfig, AdamWState, apply_updates
 
-_NOT_PORTED = "family {!r}: only the LM family is ported (ROADMAP Queue 1 item 12.2)"
+_GNN_MODULES = {
+    "graphsage-reddit": "repro_torch.models.gnn.graphsage",
+    "mace": "repro_torch.models.gnn.mace",
+    "egnn": "repro_torch.models.gnn.egnn",
+    "equiformer-v2": "repro_torch.models.gnn.equiformer_v2",
+}
+
+
+def _family_error(spec: ArchSpec) -> ValueError:
+    return ValueError(f"family {spec.family!r} has no training step")
 
 
 def make_loss_fn(spec: ArchSpec, shape_kind: str, cfg=None) -> Callable:
@@ -41,7 +54,23 @@ def make_loss_fn(spec: ArchSpec, shape_kind: str, cfg=None) -> Callable:
         from repro_torch.models.transformer import lm_loss
 
         return partial(lm_loss, cfg=cfg)
-    raise NotImplementedError(_NOT_PORTED.format(spec.family))
+    if spec.family == "gnn":
+        m = importlib.import_module(_GNN_MODULES[spec.arch_id])
+        if spec.arch_id == "graphsage-reddit":
+            table = {
+                "full_train": m.loss_full,
+                "sampled_train": m.loss_sampled,
+                "molecule_train": m.loss_pooled,
+            }
+            return partial(table[shape_kind], cfg=cfg)
+        if shape_kind == "molecule_train":
+            return partial(m.loss_energy, cfg=cfg)
+        return partial(m.loss_node_class, cfg=cfg)
+    if spec.family == "recsys":
+        from repro_torch.models.recsys import loss_in_batch_softmax
+
+        return partial(loss_in_batch_softmax, cfg=cfg)
+    raise _family_error(spec)
 
 
 def init_model_params(spec: ArchSpec, generator: torch.Generator, cfg=None,
@@ -53,7 +82,24 @@ def init_model_params(spec: ArchSpec, generator: torch.Generator, cfg=None,
         from repro_torch.models.transformer import init_params
 
         return init_params(cfg, generator, device)
-    raise NotImplementedError(_NOT_PORTED.format(spec.family))
+    if spec.family == "gnn":
+        return importlib.import_module(_GNN_MODULES[spec.arch_id]).init_params(
+            cfg, generator, device)
+    if spec.family == "recsys":
+        from repro_torch.models.recsys import init_params
+
+        return init_params(cfg, generator, device)
+    raise _family_error(spec)
+
+
+def specialize_gnn_config(cfg, shape_params) -> Any:
+    """GNN configs carry d_in/n_classes that depend on the shape's dataset."""
+    reps = {}
+    if "d_feat" in shape_params:
+        reps["d_in"] = shape_params["d_feat"]
+    if hasattr(cfg, "n_classes"):
+        reps["n_classes"] = shape_params.get("n_classes", 0)
+    return dataclasses.replace(cfg, **reps)
 
 
 def _views(params, grads, stacked: bool = False):
@@ -112,5 +158,24 @@ def make_lm_decode(cfg):
     def step(params, cache, batch, cur_len):
         logits, cache, cur_len = decode_step(params, cfg, cache, batch["tokens"], cur_len)
         return {"logits": logits, "next": logits.argmax(-1).to(torch.int32)}, cache, cur_len
+
+    return step
+
+
+def make_recsys_serve(cfg):
+    from repro_torch.models.recsys import serve_scores
+
+    def step(params, batch):
+        return serve_scores(params, cfg, batch)
+
+    return step
+
+
+def make_recsys_retrieval(cfg, k: int = 100):
+    from repro_torch.models.recsys import retrieval_topk
+
+    def step(params, batch):
+        scores, idx = retrieval_topk(params, cfg, batch, k=k)
+        return {"scores": scores, "indices": idx}
 
     return step

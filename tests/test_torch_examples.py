@@ -114,7 +114,7 @@ def test_turnstile_churn_matches_reference(capsys):
 
 
 @pytest.mark.parametrize("example", ["quickstart", "directed_csweep", "engine_matrix",
-                                     "mapreduce_stream", "turnstile_churn"])
+                                     "mapreduce_stream", "turnstile_churn", "community_gnn"])
 def test_port_example_raises_without_cuda_by_default(example):
     import torch
 
@@ -122,4 +122,23 @@ def test_port_example_raises_without_cuda_by_default(example):
         pytest.skip("the card is present: the default device is valid")
     mod = _load(REPO / "examples" / "torch_port" / f"{example}.py", f"port_ex_{example}")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        mod.main(["--n", "500"] if example != "directed_csweep" else [])
+        mod.main(["--n", "500"] if example not in ("directed_csweep", "community_gnn") else [])
+
+
+def test_community_gnn_matches_reference(capsys, monkeypatch, tmp_path):
+    """The reference example at its defaults (it has no arguments) and the
+    port's on the CPU, each writing its checkpoints under tmp_path: the
+    graph and every community's |S|, rho and purity print the same; the
+    port's GraphSAGE trains (its loss falls) and resumes from step 150 to
+    200.  The losses differ: each package draws its own weights."""
+    monkeypatch.chdir(tmp_path)
+    port = _run(capsys, "port", "community_gnn", [])
+    ref = _run(capsys, "ref", "community_gnn", [])
+    mined = [line for line in port.splitlines() if line.startswith(("graph:", "community"))]
+    assert len(mined) == 5
+    assert mined == [line for line in ref.splitlines()
+                     if line.startswith(("graph:", "community"))]
+    loss = re.search(r"loss (\d+\.\d+) -> (\d+\.\d+) in 150 steps", port)
+    assert loss and float(loss.group(2)) < float(loss.group(1))
+    assert "resumed at 150 -> 200" in port
+    assert (tmp_path / "experiments" / "torch" / "community_gnn_ckpt").is_dir()

@@ -4,7 +4,9 @@ turnstile, on two graphs; Algorithms 2 and 3 and an eps sweep; the
 semi-streaming substrate; the §5.2 mesh substrate on 4 devices; per-seed
 serving in both extraction modes and the local front door; the REDUCED
 llama3.2-3b's prefill logits, greedy tokens and margins; one training
-step of each LM arch's REDUCED config) is recomputed with ``repro`` here, and the port's CPU
+step of each LM arch's REDUCED config; one training step of each GNN arch's
+and the two-tower model's REDUCED config, the two-tower serve and top-k
+scores, and the communities of examples/community_gnn.py) is recomputed with ``repro`` here, and the port's CPU
 answers meet it too (``chip_smoke.py`` holds the port's CUDA answers
 against the same file, on a machine without JAX)."""
 
@@ -155,3 +157,35 @@ def test_lm_train_golden_matches_reference(arch):
 def test_port_cpu_meets_lm_train_golden(arch):
     got = golden.port_lm_train_entry(arch, "cpu")
     assert golden.lm_train_mismatch(got, _load()["lm_train"]["answers"][arch]) is None
+
+
+# -- the GNN and recsys training entries (REDUCED configs, float32) -------------
+
+
+@pytest.mark.parametrize("arch", golden.GNN_TRAIN_ARCHS)
+def test_gnn_train_golden_matches_reference(arch):
+    """The JAX package recomputes the entry within 1e-6 (the sums within
+    1e-6 plus their own allowance)."""
+    fixture = _load()["gnn_train"]
+    assert fixture["case"] == golden.GNN_TRAIN_CASE and fixture["shape"] == golden.GNN_TRAIN_SHAPE
+    assert fixture["recsys_batch"] == golden.RECSYS_TRAIN_BATCH
+    assert fixture["retrieval"] == golden.RECSYS_RETRIEVAL
+    want = fixture["answers"][arch]
+    assert golden.gnn_train_mismatch(golden.reference_gnn_train_entry(arch), want,
+                                     tol=1e-6) is None
+
+
+@pytest.mark.parametrize("arch", golden.GNN_TRAIN_ARCHS)
+def test_port_cpu_meets_gnn_train_golden(arch):
+    got = golden.port_gnn_train_entry(arch, "cpu")
+    assert golden.gnn_train_mismatch(got, _load()["gnn_train"]["answers"][arch]) is None
+
+
+def test_community_golden_matches_reference_and_port():
+    """examples/community_gnn.py's communities: the reference recomputes
+    them exactly, and the port's peel on the CPU meets them exactly (unit
+    weights: the densities are the same floats)."""
+    fixture = _load()["gnn_train"]["community"]
+    assert fixture["case"] == {**golden.COMMUNITY, "p_in": list(golden.COMMUNITY["p_in"])}
+    assert golden.reference_community_entry() == fixture["answers"]
+    assert golden.port_community_entry("cpu") == fixture["answers"]

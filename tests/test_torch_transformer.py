@@ -230,11 +230,18 @@ def test_configs_match_reference(arch):
 
 
 def test_unported_archs_and_moe_raise():
-    """The GNN and recsys archs still raise; the MoE archs build and run
-    (tests/test_torch_moe.py holds them to the reference)."""
-    for arch in ("mace", "egnn", "graphsage-reddit", "equiformer-v2", "two-tower-retrieval"):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            get_arch(arch)
+    """No arch is left unported: the GNN and recsys archs resolve to their
+    families (tests/test_torch_gnn.py and test_torch_recsys.py hold them to
+    the reference), and only an unknown id raises; the MoE archs build and
+    run (tests/test_torch_moe.py holds them to the reference)."""
+    from repro_torch.configs.registry import NOT_PORTED
+
+    assert NOT_PORTED == {}
+    for arch, family in (("mace", "gnn"), ("egnn", "gnn"), ("graphsage-reddit", "gnn"),
+                         ("equiformer-v2", "gnn"), ("two-tower-retrieval", "recsys")):
+        assert get_arch(arch).family == family
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("no-such-arch")
     for arch in ("mixtral-8x7b", "llama4-maverick-400b-a17b"):
         cfg = get_arch(arch).reduced_config
         params = tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
