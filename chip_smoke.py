@@ -4150,6 +4150,245 @@ def path_gnn(mesh, smi: str) -> dict:
     return counts
 
 
+
+# ---------------------------------------------------------------------------
+# Path 13: the launch dry-run layer (sharding/, launch/), its accounting
+# held against real runs on the card
+# ---------------------------------------------------------------------------
+
+LAUNCH_DRYRUN_TIMEOUT = 600  # s for the 88 records, both meshes, in LAUNCH_JOBS children
+LAUNCH_JOBS = 8
+LAUNCH_BYTES_TOL = 0.01  # predicted argument bytes against memory_allocated, overall
+LAUNCH_PREDICT = r"""
+import json
+from repro_torch.launch import cells
+from repro_torch.launch.mesh import make_mesh
+
+mesh = make_mesh((1, 1), ("data", "model"))
+out = {}
+for key, arch, shape, ov in (
+        ("llama", "llama3.2-3b", "train_4k", {"shape_params": {"global_batch": 1}}),
+        ("graphsage", "graphsage-reddit", "ogb_products", {})):
+    cell = cells.build_cell(arch, shape, mesh=mesh, overrides=ov)
+    tr = cells.trace_cell(cell)
+    out[key] = {"arg_bytes": tr.arg_bytes, "flops": tr.stats["flops"], "info": cell.info}
+cell = cells.build_cell("densest-mapreduce", "livejournal_md", mesh=mesh)
+stats, _ = cells._run(cell, answer=cells._alternate())
+body = stats.reads[1].minus(stats.reads[0])
+out["densest"] = {"collectives_a_pass": body.collective_count,
+                  "in_bytes_a_pass": body.collective_in_bytes, "info": cell.info}
+print("RESULT=" + json.dumps(out))
+"""
+
+
+def _src_env() -> dict:
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return env
+
+
+def launch_predictions_start():
+    """The dry-run's predictions for path 13's three cells at a one-rank mesh,
+    in a child process (a fake world cannot share this process with the
+    NCCL world); started early, read when needed."""
+    return subprocess.Popen([sys.executable, "-c", LAUNCH_PREDICT], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=_src_env(), cwd=ROOT)
+
+
+def launch_predictions(proc) -> dict:
+    out, err = proc.communicate(timeout=600)
+    line = [ln for ln in out.splitlines() if ln.startswith("RESULT=")]
+    if proc.returncode or not line:
+        raise RuntimeError(f"launch predictions failed (rc {proc.returncode}): {err[-3000:]}")
+    return json.loads(line[-1][len("RESULT="):])
+
+
+def phase_launch_densest(lj, mesh, pred: dict, smi: str) -> None:
+    """densest-mapreduce x livejournal_md on the NCCL mesh: the collectives a
+    pass the trace predicts against ``repro_torch.collectives``' counters."""
+    import torch
+
+    from repro_torch import collectives
+    from repro_torch.configs import get_arch
+    from repro_torch.core.mapreduce import make_distributed_peel, shard_edges
+
+    cfg = get_arch("densest-mapreduce").config
+    axes = tuple(mesh.mesh_dim_names)
+    sh = shard_edges(lj, mesh, axes)
+    fn = make_distributed_peel(mesh, axes, eps=cfg.eps, max_passes=cfg.max_passes,
+                               n_nodes=lj.n_nodes)
+    collectives.reset()
+    out = fn(sh.src, sh.dst, sh.weight, sh.mask)
+    torch.cuda.synchronize()
+    passes = out.passes
+    count = (collectives.all_reduce.count + collectives.all_gather.count) / passes
+    in_bytes = (collectives.all_reduce.bytes + collectives.all_gather.bytes) / passes
+    want = pred["densest"]
+    log("launch.card", cell="densest-mapreduce x livejournal_md", mesh="one-rank NCCL",
+        passes=passes, expected_passes=want["info"]["expected_passes"],
+        collectives_a_pass=count, predicted=want["collectives_a_pass"],
+        bytes_a_pass=in_bytes, predicted_bytes=want["in_bytes_a_pass"], card=smi)
+    if count != want["collectives_a_pass"] or in_bytes != want["in_bytes_a_pass"]:
+        raise RuntimeError("launch.card: the densest cell's collectives a pass differ from "
+                           "the dry-run's")
+
+
+def phase_launch_dryrun(smi: str) -> dict:
+    """``python -m repro_torch.launch.dryrun --all --include-densest
+    --both-meshes``: 80 ok, 8 skipped with the configs' reasons, 0 errors;
+    each single-pod cell's bound and terms under the H100 constants."""
+    import shutil
+
+    from repro_torch.configs import get_arch
+
+    out_dir = ROOT / "experiments" / "dryrun" / "torch"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--include-densest",
+           "--both-meshes", "--jobs", str(LAUNCH_JOBS), "--out-dir", str(out_dir)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=LAUNCH_DRYRUN_TIMEOUT,
+                         env=_src_env(), cwd=ROOT)
+    seconds = time.perf_counter() - t0
+    recs = [json.loads(f.read_text()) for f in sorted(out_dir.glob("*.json"))]
+    status = {k: sum(r["status"] == k for r in recs) for k in ("ok", "skipped", "error")}
+    for r in recs:
+        if r["status"] == "skipped":
+            want = get_arch(r["arch"]).shape(r["shape"]).skip_reason
+            if r["skip_reason"] != want:
+                raise RuntimeError(f"launch.dryrun: {r['arch']} x {r['shape']} skipped for "
+                                   f"{r['skip_reason']!r}, the config says {want!r}")
+    for r in recs:
+        if r["status"] == "ok" and r["mesh"] == "16x16":
+            rl = r["roofline"]
+            log("launch.dryrun.cell", cell=f"{r['arch']} x {r['shape']}", bound=rl["bound"],
+                compute_ms=rl["compute_s"] * 1e3, memory_ms=rl["memory_s"] * 1e3,
+                collective_ms=rl["collective_s"] * 1e3,
+                roofline_fraction=rl["roofline_fraction"], chip=r["chip"]["name"])
+    log("launch.dryrun", **status, records=len(recs), seconds=round(seconds, 3),
+        timeout=LAUNCH_DRYRUN_TIMEOUT, jobs=LAUNCH_JOBS, rc=res.returncode, card=smi)
+    if status != {"ok": 80, "skipped": 8, "error": 0} or res.returncode:
+        raise RuntimeError(f"launch.dryrun: {status}, rc {res.returncode}: "
+                           f"{res.stdout[-3000:]} {res.stderr[-2000:]}")
+    return status
+
+
+def _launch_card(label: str, spec, kind: str, cfg, make_params, make_batch, pred: dict,
+                 smi: str) -> None:
+    """Places one cell's real state on the card and holds it to the dry-run's
+    prediction: the parameters' tensor bytes exact (``memory_allocated``
+    after them printed beside: the allocator rounds its blocks), all
+    argument bytes within LAUNCH_BYTES_TOL of ``memory_allocated``, the
+    step's dot FLOPs
+    (``FlopCounterMode``) equal to the traced step's; then one timed step
+    and its roofline fraction."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import tree as tree_util
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train.step import make_loss_fn, make_train_step
+
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated()
+    params = make_params()
+    torch.cuda.synchronize()
+    m1 = torch.cuda.memory_allocated()
+    opt_cfg = AdamWConfig(moment_dtype="fp32")
+    opt = init_state(params, opt_cfg)
+    batch = make_batch()
+    torch.cuda.synchronize()
+    m3 = torch.cuda.memory_allocated()
+    want = pred["arg_bytes"]
+    param_bytes = sum(x.numel() * x.element_size() for x in tree_util.leaves(params))
+    step = make_train_step(make_loss_fn(spec, kind, cfg=cfg), opt_cfg)
+    with FlopCounterMode(display=False) as fc:
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+    flops = fc.get_total_flops()
+    t0 = time.perf_counter()
+    step(params, opt, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = sum(want.values())
+    rel = abs((m3 - m0) - total) / total
+    frac = pred["info"]["flops_model"] / (BF16_FLOPS * wall)
+    log("launch.card", cell=label, params_bytes=param_bytes, params_allocated=m1 - m0,
+        predicted_params=want["params"],
+        arg_bytes=m3 - m0, predicted_args=total, rel_err=rel, dot_flops=flops,
+        predicted_flops=pred["flops"], step_ms=wall * 1e3,
+        model_flops=pred["info"]["flops_model"], roofline_fraction=frac,
+        peak_bf16=BF16_FLOPS, card=smi)
+    del params, opt, batch, step
+    torch.cuda.empty_cache()
+    if param_bytes != want["params"] or rel > LAUNCH_BYTES_TOL or flops != pred["flops"]:
+        raise RuntimeError(f"launch.card: {label} differs from the dry-run's prediction")
+
+
+def phase_launch_card(pred: dict, smi: str) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import gnn_full_batch, lm_train_batch
+    from repro_torch.models.gnn import graphsage
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.step import specialize_gnn_config
+
+    spec = get_arch("llama3.2-3b")
+    cfg = dataclasses.replace(spec.config, attn_impl="auto", remat=True)
+    _launch_card(
+        "llama3.2-3b x train_4k (global_batch 1)", spec, "train", cfg,
+        lambda: init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV),
+        lambda: lm_train_batch(np.random.default_rng(0), cfg.vocab, 1,
+                               spec.shape("train_4k").params["seq_len"], DEV),
+        pred["llama"], smi)
+    spec = get_arch("graphsage-reddit")
+    p = dict(spec.shape("ogb_products").params)
+    cfg = specialize_gnn_config(spec.config, p)
+    _launch_card(
+        "graphsage-reddit x ogb_products", spec, "full_train", cfg,
+        lambda: graphsage.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), DEV),
+        lambda: pad_full_batch(gnn_full_batch(np.random.default_rng(0), p["n_nodes"],
+                                              p["n_edges"], p["d_feat"], p["n_classes"],
+                                              False, DEV)),
+        pred["graphsage"], smi)
+
+
+def phase_launch_pipeline(mesh, smi: str) -> None:
+    """``pipelined_apply`` with one stage on the card == the sequential
+    stack, forward (rtol = atol 2e-5) and gradient (5e-4 / 1e-5)."""
+    import torch
+
+    from repro_torch.sharding.pipeline import bubble_fraction, pipelined_apply
+
+    g = torch.Generator(device=DEV).manual_seed(0)
+    w = (torch.randn(1, 256, 256, device=DEV, generator=g) * 0.06).requires_grad_()
+    x = torch.randn(8, 4, 256, device=DEV, generator=g)
+    out = pipelined_apply(mesh, mesh.mesh_dim_names[0], lambda wi, h: torch.tanh(h @ wi), w, x)
+    (out ** 2).mean().backward()
+    w2 = w.detach().clone().requires_grad_()
+    want = torch.tanh(x @ w2[0])
+    (want ** 2).mean().backward()
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(w.grad, w2.grad, rtol=5e-4, atol=1e-5)
+    log("launch.pipeline", stages=1, micro=8, out_err=(out - want).abs().max().item(),
+        grad_err=(w.grad - w2.grad).abs().max().item(), bubble=bubble_fraction(1, 8), card=smi)
+
+
+def path_launch(mesh, pred: dict, smi: str) -> dict:
+    """Path 13: the dry-run, its accounting against the card, the pipeline;
+    K1-K4 launch 0 times here."""
+    _zero_counts()
+    t0 = time.perf_counter()
+    phase_launch_dryrun(smi)
+    phase_launch_card(pred, smi)
+    phase_launch_pipeline(mesh, smi)
+    counts = _counts()
+    log("launch.path", seconds=round(time.perf_counter() - t0, 3), launches=counts, card=smi)
+    return counts
+
 def main() -> int:
     import torch
 
@@ -4164,6 +4403,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     smi = phase_environment()
+    launch_child = launch_predictions_start()
     phase_build()
     # Path 1: Algorithm 1 on the ladder through K1 (flickr_sm).
     t0 = time.perf_counter()
@@ -4195,6 +4435,9 @@ def main() -> int:
     mesh, cpu_mesh = mesh_inputs()
     k2["launches_by_path"] = {"livejournal": k2["launches"],
                               **phase_mesh_livejournal(lj, ladder, lj_sketch, mesh)}
+    # Path 13's densest cell (its other parts run last).
+    launch_pred = launch_predictions(launch_child)
+    phase_launch_densest(lj, mesh, launch_pred, smi)
     # Path 9 (its part that needs livejournal_md): the paper's tables.
     path9 = {"bench.paper": phase_bench_paper(flickr, lj, mesh)}
     del lj, lj_sketch
@@ -4293,9 +4536,12 @@ def main() -> int:
     # Path 12: the GNN and recsys families at full width (no kernel of
     # K1-K4; the tiled neighbor sum on the NCCL mesh).
     gnn = path_gnn(mesh, smi)
+    # Path 13: the launch dry-run layer; no kernel of K1-K4.
+    launch = path_launch(mesh, launch_pred, smi)
     k4["launches_by_path"] = {"lm.prefill": k4["launches"], "moe.prefill": k4_moe["launches"],
                               "train.step": train["launches"],
-                              "train.k4": k4_train["launches"], "gnn": gnn["k4"]}
+                              "train.k4": k4_train["launches"], "gnn": gnn["k4"],
+                              "launch": launch["k4"]}
     k4["trainable"] = k4_train["trainable"]
     import torch.distributed as dist
 
@@ -4307,6 +4553,7 @@ def main() -> int:
         kern["launches_by_path"].update(
             {path: n[key] for path, n in path9.items() if n[key]})
         kern["launches_by_path"]["gnn"] = gnn[key]
+        kern["launches_by_path"]["launch"] = launch[key]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path", "moe_window",
             "trainable")

@@ -1,6 +1,7 @@
 """ArchSpec: one record per architecture (counterpart of
 ``repro.configs.base``): model config, reduced smoke config, sharding rules
-(data, unused until the mesh slice) and the arch's input-shape set."""
+(read by ``launch/cells.py`` through ``sharding/rules.py``) and the arch's
+input-shape set."""
 
 from __future__ import annotations
 
@@ -32,6 +33,12 @@ class ArchSpec:
         default_factory=dict
     )
     notes: str = ""
+
+    def shape(self, name: str) -> ShapeSpec:
+        return self.shapes[name]
+
+    def runnable_shapes(self):
+        return {k: v for k, v in self.shapes.items() if v.skip_reason is None}
 
 
 def lm_shapes(long_skip_reason: Optional[str]) -> Dict[str, ShapeSpec]:

@@ -1,9 +1,6 @@
-"""Architecture registry: ``--arch <id>`` resolution (counterpart of
-``repro.configs.registry``), over every arch of the reference.
-
-``densest-mapreduce`` is registered for its shapes and config, which the
-benchmarks read; its launch dry-run waits for the port's launch layer
-(ROADMAP Queue 1 item 12.3), so ``repro_torch.launch`` has no ``dryrun``."""
+"""Architecture registry: ``--arch <id>`` resolution for the launch CLIs
+and the dry-run (counterpart of ``repro.configs.registry``), over every
+arch of the reference."""
 
 from __future__ import annotations
 
@@ -44,3 +41,15 @@ def get_arch(arch_id: str) -> ArchSpec:
     if arch_id in NOT_PORTED:
         raise KeyError(f"arch {arch_id!r} is not ported yet: it needs {NOT_PORTED[arch_id]}")
     raise KeyError(f"unknown arch {arch_id!r}; available: {sorted(archs)}")
+
+
+def assigned_cells(include_densest: bool = False):
+    """The 40 assigned (arch x shape) cells (+ optional paper-workload cells),
+    in the reference's order."""
+    cells = []
+    for arch_id, spec in all_archs().items():
+        if spec.family == "densest" and not include_densest:
+            continue
+        for shape_name in spec.shapes:
+            cells.append((arch_id, shape_name))
+    return cells

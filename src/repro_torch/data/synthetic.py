@@ -2,7 +2,9 @@
 the LM, GNN and recsys families, for smoke tests, examples, training runs
 and the card's full-size cells.  The numbers are numpy's, drawn in the
 reference's call order, so every array equals the reference's bit for bit;
-only then do they become tensors on ``device`` (default: the card)."""
+only then do they become tensors on ``device`` (default: the card).
+:func:`abstract_batch` gives the dry-run's inputs: the same layouts at the
+full shapes, as meta tensors."""
 
 from __future__ import annotations
 
@@ -131,4 +133,115 @@ def make_batch(spec: ArchSpec, shape_kind: str, *, reduced_shape: Mapping[str, A
         raise ValueError(shape_kind)
     if spec.family == "recsys":
         return recsys_train_batch(rng, spec.reduced_config, p["batch"], device)
+    raise ValueError(spec.family)
+
+
+# ---------------------------------------------------------------------------
+# Abstract batches: shapes and dtypes only, on the meta device (the dry-run)
+# ---------------------------------------------------------------------------
+
+_i32, _f32, _bool = torch.int32, torch.float32, torch.bool
+
+
+def _meta(shapes: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    return {k: torch.empty(s, dtype=dt, device="meta") for k, (s, dt) in shapes.items()}
+
+
+def _pad(n: int, to: int) -> int:
+    return -(-n // to) * to
+
+
+def gnn_full_batch_spec(n_nodes: int, n_edges: int, d_feat: int, n_classes: int,
+                        with_positions: bool, pad_to: int = 512) -> Dict[str, torch.Tensor]:
+    """:func:`gnn_full_batch`'s layout with node and edge counts padded to a
+    multiple of 512, so the node dim can shard over every mesh axis (256
+    single-pod, 512 multi-pod), as the reference pads."""
+    n, e = _pad(n_nodes, pad_to), _pad(n_edges, pad_to)
+    s = {"features": ((n, d_feat), _f32), "src": ((e,), _i32), "dst": ((e,), _i32),
+         "edge_mask": ((e,), _bool), "labels": ((n,), _i32), "train_mask": ((n,), _f32)}
+    if with_positions:
+        s["positions"] = ((n, 3), _f32)
+    return _meta(s)
+
+
+def gnn_molecule_batch_spec(batch: int, nodes_per: int, edges_per: int, d_feat: int,
+                            with_positions: bool) -> Dict[str, torch.Tensor]:
+    n, e = batch * nodes_per, batch * edges_per
+    s = {"features": ((n, d_feat), _f32), "src": ((e,), _i32), "dst": ((e,), _i32),
+         "edge_mask": ((e,), _bool), "graph_ids": ((n,), _i32),
+         "graph_labels": ((batch,), _f32)}
+    if with_positions:
+        s["positions"] = ((n, 3), _f32)
+    return _meta(s)
+
+
+def sage_minibatch_spec(n_nodes: int, d_feat: int, roots: int, fanout) -> Dict[str, torch.Tensor]:
+    f1, f2 = fanout
+    return _meta({
+        "feat_table": ((n_nodes, d_feat), _f32), "hop0": ((roots,), _i32),
+        "hop1": ((roots, f1), _i32), "hop2": ((roots, f1, f2), _i32),
+        "hop1_mask": ((roots, f1), _f32), "hop2_mask": ((roots, f1, f2), _f32),
+        "labels": ((roots,), _i32),
+    })
+
+
+def subgraph_minibatch_spec(n_table: int, d_feat: int, roots: int, fanout,
+                            with_positions: bool) -> Dict[str, torch.Tensor]:
+    """The layered neighborhood of a non-SAGE GNN on minibatch_lg,
+    flattened into one padded edge list."""
+    f1, f2 = fanout
+    n = roots * (1 + f1 + f1 * f2)
+    e = roots * f1 + roots * f1 * f2
+    s = {"features": ((n, d_feat), _f32), "src": ((e,), _i32), "dst": ((e,), _i32),
+         "edge_mask": ((e,), _bool), "labels": ((n,), _i32), "train_mask": ((n,), _f32)}
+    if with_positions:
+        s["positions"] = ((n, 3), _f32)
+    return _meta(s)
+
+
+def abstract_batch(spec: ArchSpec, shape) -> Dict[str, torch.Tensor]:
+    """The model inputs of one dry-run cell as meta tensors (parameters,
+    caches and optimizer state are built separately): the reference's
+    ``abstract_batch``, shape for shape."""
+    p = dict(shape.params)
+    if spec.family == "lm":
+        b, s = p["global_batch"], p["seq_len"]
+        if shape.kind == "train":
+            return _meta({"tokens": ((b, s), _i32), "labels": ((b, s), _i32)})
+        if shape.kind == "prefill":
+            return _meta({"tokens": ((b, s), _i32)})
+        if shape.kind in ("decode", "decode_long"):
+            return _meta({"tokens": ((b, 1), _i32)})
+        raise ValueError(shape.kind)
+    if spec.family == "gnn":
+        pos = _gnn_needs_positions(spec.arch_id)
+        if shape.kind == "full_train":
+            return gnn_full_batch_spec(p["n_nodes"], p["n_edges"], p["d_feat"],
+                                       p["n_classes"], pos)
+        if shape.kind == "sampled_train":
+            if spec.arch_id == "graphsage-reddit":
+                return sage_minibatch_spec(p["n_nodes"], p["d_feat"], p["batch_nodes"],
+                                           tuple(p["fanout"]))
+            return subgraph_minibatch_spec(p["n_nodes"], p["d_feat"], p["batch_nodes"],
+                                           tuple(p["fanout"]), pos)
+        if shape.kind == "molecule_train":
+            return gnn_molecule_batch_spec(p["batch"], p["n_nodes"], p["n_edges"],
+                                           p["d_feat"], pos)
+        raise ValueError(shape.kind)
+    if spec.family == "recsys":
+        h = spec.config.hist_len
+        if shape.kind in ("train", "serve"):
+            b = p["batch"]
+            return _meta({"user_id": ((b,), _i32), "hist": ((b, h), _i32),
+                          "hist_mask": ((b, h), _f32), "item_id": ((b,), _i32),
+                          "logq": ((b,), _f32)})
+        if shape.kind == "retrieval":
+            return _meta({"user_id": ((1,), _i32), "hist": ((1, h), _i32),
+                          "hist_mask": ((1, h), _f32),
+                          "cand_ids": ((p["n_candidates"],), _i32)})
+        raise ValueError(shape.kind)
+    if spec.family == "densest":
+        m = p["n_edges"]
+        return _meta({"src": ((m,), _i32), "dst": ((m,), _i32), "weight": ((m,), _f32),
+                      "mask": ((m,), _bool)})
     raise ValueError(spec.family)

@@ -25,6 +25,12 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.loops import fill, uniform
+from repro_torch.sharding.local import (
+    block_index, is_dtensor, merge_dims, run_local, split_dim,
+)
+from repro_torch.sharding.rules import shard
+
 # Not -inf: a fully masked early chunk then gives p = exp(0) = 1, which the
 # next real maximum wipes out through alpha = exp(NEG_INF - m) = 0; with
 # -inf the online softmax would form inf - inf = NaN.
@@ -81,9 +87,20 @@ def gqa_attention(
         if g != 1:
             k = k.repeat_interleave(g, dim=2)
             v = v.repeat_interleave(g, dim=2)
-        return _chunked_gqa(q, k, v, q_positions=q_positions, kv_positions=kv_positions,
-                            kv_valid=kv_valid, window=window, q_chunk=q_chunk,
-                            kv_chunk=kv_chunk)
+        q, k, v = (shard(t, "batch", None, "heads4", None, uneven=("heads4",))
+                   for t in (q, k, v))
+        kw = dict(window=window, q_chunk=q_chunk, kv_chunk=kv_chunk)
+        if is_dtensor(q):
+            # rows and heads are independent: each device's shard on its own
+            out = run_local(
+                lambda q, k, v, qp, kp, kv: _chunked_gqa(
+                    q, k, v, q_positions=qp, kv_positions=kp, kv_valid=kv, **kw),
+                (q, k, v, q_positions, kv_positions, kv_valid), tuple(q.placements),
+                shapes=q.shape)
+        else:
+            out = _chunked_gqa(q, k, v, q_positions=q_positions, kv_positions=kv_positions,
+                               kv_valid=kv_valid, **kw)
+        return shard(out, "batch", None, "heads4", None, uneven=("heads4",))
     if impl == "pallas":
         from repro_torch.kernels.flash_attention.ops import flash_attention
 
@@ -101,7 +118,7 @@ def gqa_attention(
         raise ValueError(f"{hq} query heads are not a multiple of {hkv} kv heads")
     g = hq // hkv
 
-    qg = q.reshape(b, sq, hkv, g, d)
+    qg = split_dim(q, 2, hkv, g)
     # [B, Hkv, G, Sq, Sk], f32 (the reference's preferred_element_type).
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * _scale(d)
     mask = _causal_window_mask(q_positions, kv_positions, window)  # [(B,) Sq, Sk]
@@ -111,7 +128,7 @@ def gqa_attention(
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.float(), v.float()).to(v.dtype)
-    return out.reshape(b, sq, hq, d)
+    return merge_dims(out, 2)
 
 
 def _chunked_gqa(
@@ -215,11 +232,12 @@ class _ChunkedFlash(torch.autograd.Function):
         qc, kc, vc, qpos, kpos, valid = _chunks(q, k, v, q_positions, kv_positions, kv_valid,
                                                 q_chunk, kv_chunk)
         outs, lses = [], []
-        for q_blk, qpos_blk in zip(qc, qpos):  # q_blk [b, qc, hkv, g, d]
+        nq, nk = len(qc), len(kc)
+        for q_blk, qpos_blk in uniform(zip(qc, qpos), nq):  # q_blk [b, qc, hkv, g, d]
             m = torch.full((b, hkv, g, q_chunk), NEG_INF, dtype=torch.float32, device=q.device)
             l = torch.zeros((b, hkv, g, q_chunk), dtype=torch.float32, device=q.device)
             acc = torch.zeros((b, hkv, g, q_chunk, d), dtype=torch.float32, device=q.device)
-            for k_blk, v_blk, kpos_blk, valid_blk in zip(kc, vc, kpos, valid):
+            for k_blk, v_blk, kpos_blk, valid_blk in uniform(zip(kc, vc, kpos, valid), nk):
                 s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, k_blk) * scale
                 s = torch.where(_chunk_mask(qpos_blk, kpos_blk, valid_blk, window), s, NEG_INF)
                 m_new = torch.maximum(m, s.amax(dim=-1))
@@ -234,8 +252,8 @@ class _ChunkedFlash(torch.autograd.Function):
             lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)), torch.inf)
             outs.append(out.permute(0, 3, 1, 2, 4).to(v.dtype))
             lses.append(lse)
-        out = torch.stack(outs, 1).reshape(b, sqp, hq, d)
-        lse = torch.stack(lses)  # [nq, b, hkv, g, qc]: kept chunked
+        out = torch.stack(fill(outs, nq), 1).reshape(b, sqp, hq, d)
+        lse = torch.stack(fill(lses, nq))  # [nq, b, hkv, g, qc]: kept chunked
         ctx.save_for_backward(q, k, v, q_positions, kv_positions, kv_valid, out, lse)
         ctx.static = (window, q_chunk, kv_chunk)
         return out
@@ -258,11 +276,13 @@ class _ChunkedFlash(torch.autograd.Function):
         dq = [torch.zeros((b, q_chunk, hkv, g, d), dtype=torch.float32, device=q.device)
               for _ in range(nq)]
         dks, dvs = [], []
-        for k_blk, v_blk, kpos_blk, valid_blk in zip(kc, vc, kpos, valid):
+        nk = len(kc)
+        for k_blk, v_blk, kpos_blk, valid_blk in uniform(zip(kc, vc, kpos, valid), nk):
             dk_j = torch.zeros((b, kv_chunk, hkv, d), dtype=torch.float32, device=q.device)
             dv_j = torch.zeros_like(dk_j)
             dq_j = []
-            for q_blk, do_blk, lse_blk, delta_blk, qpos_blk in zip(qc, doc, lse, delta, qpos):
+            for q_blk, do_blk, lse_blk, delta_blk, qpos_blk in uniform(
+                    zip(qc, doc, lse, delta, qpos), nq):
                 s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, k_blk) * scale
                 ok = _chunk_mask(qpos_blk, kpos_blk, valid_blk, window)
                 # p = exp(s - lse); a row with no allowed key has lse = inf: p = 0.
@@ -272,12 +292,12 @@ class _ChunkedFlash(torch.autograd.Function):
                 ds = p * (dp - delta_blk[..., None]) * scale
                 dq_j.append(torch.einsum("bhgqk,bkhd->bqhgd", ds, k_blk))
                 dk_j = dk_j + torch.einsum("bhgqk,bqhgd->bkhd", ds, q_blk)
-            dq = [acc + blk for acc, blk in zip(dq, dq_j)]
+            dq = [acc + blk for acc, blk in zip(dq, fill(dq_j, nq))]
             dks.append(dk_j)
             dvs.append(dv_j)
         dq = torch.stack(dq, 1).reshape(b, sqp, hq, d).to(q.dtype)
-        dk = torch.stack(dks, 1).reshape(b, skp, hkv, d).to(k.dtype)
-        dv = torch.stack(dvs, 1).reshape(b, skp, hkv, d).to(v.dtype)
+        dk = torch.stack(fill(dks, nk), 1).reshape(b, skp, hkv, d).to(k.dtype)
+        dv = torch.stack(fill(dvs, nk), 1).reshape(b, skp, hkv, d).to(v.dtype)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -317,6 +337,8 @@ def cache_update(
     """Writes the new token's K/V at slot ``cur_len % M`` (rolling) or
     ``min(cur_len, M - 1)`` (dense), IN PLACE, and returns the two caches.
     The reference returns updated copies."""
+    if is_dtensor(cache_k):
+        return _cache_update_sharded(cache_k, cache_v, k_new, v_new, cur_len, rolling)
     b, m = cache_k.shape[0], cache_k.shape[1]
     cur = lengths(cur_len, b, cache_k.device)
     slot = cur % m if rolling else cur.clamp(max=m - 1)
@@ -324,6 +346,38 @@ def cache_update(
     cache_k[rows, slot] = k_new[:, 0].to(cache_k.dtype)
     cache_v[rows, slot] = v_new[:, 0].to(cache_v.dtype)
     return cache_k, cache_v
+
+
+def _cache_update_sharded(cache_k, cache_v, k_new, v_new, cur_len, rolling: bool):
+    """:func:`cache_update` of a DTensor cache split by rows and slots: the
+    new token is gathered to each device's rows, and each device writes
+    the slot if it holds it (the others keep theirs)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = cache_k.device_mesh
+    want = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in cache_k.placements)
+    k_new, v_new = (t.redistribute(mesh, want) if is_dtensor(t) else t for t in (k_new, v_new))
+    if is_dtensor(cur_len) and cur_len.dim() == 1:  # one length a row: the cache's rows
+        cur_len = cur_len.redistribute(mesh, want)
+    m_all = cache_k.shape[1]
+    start = block_index(mesh, [i for i, p in enumerate(cache_k.placements)
+                               if isinstance(p, Shard) and p.dim == 1])
+
+    def local(ck, cv, kn, vn, cur_len):
+        b, m = ck.shape[0], ck.shape[1]
+        cur = lengths(cur_len, b, ck.device)
+        slot = cur % m_all if rolling else cur.clamp(max=m_all - 1)
+        rel = slot - start * m
+        ok = ((rel >= 0) & (rel < m))[:, None, None]
+        rel = rel.clamp(0, m - 1)
+        rows = torch.arange(b, device=ck.device)
+        ck[rows, rel] = torch.where(ok, kn[:, 0].to(ck.dtype), ck[rows, rel])
+        cv[rows, rel] = torch.where(ok, vn[:, 0].to(cv.dtype), cv[rows, rel])
+        return ck, cv
+
+    return run_local(local, (cache_k, cache_v, k_new, v_new, cur_len),
+                     (tuple(cache_k.placements), tuple(cache_v.placements)))
 
 
 def decode_attention(

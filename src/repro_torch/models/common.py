@@ -16,6 +16,11 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.sharding.local import (
+    edge_local, is_dtensor, take_last, whole_last,
+)
+from repro_torch.sharding.local import matmul as sharded_matmul
+
 
 def trunc_normal(generator: torch.Generator, shape: Sequence[int], std: float,
                  dtype=torch.float32, device=None) -> torch.Tensor:
@@ -42,7 +47,7 @@ def dense(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     if compute_dtype is not None:
         w = w.to(compute_dtype)
         x = x.to(compute_dtype)
-    y = x @ w
+    y = sharded_matmul(x, w) if is_dtensor(w) else x @ w
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -143,9 +148,12 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
     logits ``[..., V]``; labels int ``[...]``; mask broadcastable to labels
     (the token count is its sum, at least 1)."""
-    logits = logits.float()
+    logits = whole_last(logits).float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    if is_dtensor(logits):  # each device its rows (DTensor's gather strategy would mask)
+        ll = take_last(logits, labels)
+    else:
+        ll = logits.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
     loss = lse - ll
     if z_loss:
         loss = loss + z_loss * lse.square()
@@ -253,7 +261,11 @@ def gather_segment_sum(data: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     whole message tensor.  ``weight`` gets no gradient."""
     if weight.requires_grad:
         raise ValueError("gather_segment_sum: the edge weights are constants")
-    return _GatherScaleSum.apply(data, _ids(src), _ids(dst), weight, int(num_segments))
+    n = int(num_segments)
+    if any(is_dtensor(t) for t in (data, src, dst)):
+        return edge_local(lambda d, s_, t, w: _GatherScaleSum.apply(d, _ids(s_), _ids(t), w, n),
+                          (data,), (src, dst, weight))
+    return _GatherScaleSum.apply(data, _ids(src), _ids(dst), weight, n)
 
 
 def _ids(ids: torch.Tensor) -> torch.Tensor:
@@ -263,12 +275,17 @@ def _ids(ids: torch.Tensor) -> torch.Tensor:
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int):
     """``jax.ops.segment_sum``: rows of ``data`` added up by segment, in
     data's dtype (accumulated in f32, see :class:`_SegmentSum`)."""
-    return _SegmentSum.apply(data, _ids(segment_ids), int(num_segments))
+    n = int(num_segments)
+    if is_dtensor(data) or is_dtensor(segment_ids):
+        return edge_local(lambda d, i: _SegmentSum.apply(d, _ids(i), n), (), (data, segment_ids))
+    return _SegmentSum.apply(data, _ids(segment_ids), n)
 
 
 def gather(data: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``jnp.take(data, ids, axis=0)`` for 1-D ``ids``; the gradient's
     scatter accumulates in f32."""
+    if is_dtensor(data) or is_dtensor(ids):
+        return edge_local(lambda d, i: _Gather.apply(d, _ids(i)), (data,), (ids,), out="edges")
     return _Gather.apply(data, _ids(ids))
 
 
@@ -276,14 +293,18 @@ def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: in
     """Each segment's sum over its row count (at least 1), both in data's
     dtype, as the reference divides."""
     s = segment_sum(data, segment_ids, num_segments)
-    cnt = segment_sum(torch.ones(data.shape[:1], dtype=data.dtype, device=data.device),
-                      segment_ids, num_segments)
+    ones = (torch.ones_like(data.reshape(data.shape[0], -1)[:, 0]) if is_dtensor(data)
+            else torch.ones(data.shape[:1], dtype=data.dtype, device=data.device))
+    cnt = segment_sum(ones, segment_ids, num_segments)
     return s / cnt.clamp_min(1.0)[(...,) + (None,) * (data.dim() - 1)]
 
 
 def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int):
     """``jax.ops.segment_max``: -inf where a segment is empty.  Its gradient
     goes to the rows that reach the maximum, split evenly among ties."""
+    if is_dtensor(data) or is_dtensor(segment_ids):
+        return edge_local(lambda d, i: segment_max(d, i, num_segments), (), (data, segment_ids),
+                          reduce_op="max")
     ids = _ids(segment_ids)
     index = ids.view((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
     init = torch.full((num_segments,) + tuple(data.shape[1:]), float("-inf"),

@@ -32,6 +32,7 @@ from repro_torch.models.common import (
     softmax_cross_entropy,
     tree_from_reference,
 )
+from repro_torch.sharding.rules import shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +102,7 @@ def forward(params, cfg: EGNNConfig, batch):
 
     for i in range(cfg.n_layers):
         p = params[f"layer{i}"]
+        h = shard(h, "nodes", None)
         hi = gather(h, dst)
         hj = gather(h, src)
         rij = gather(x, dst) - gather(x, src)  # [E, 3]
@@ -111,9 +113,10 @@ def forward(params, cfg: EGNNConfig, batch):
         # Coordinate update (float32 for stability, normalized by distance).
         coef = mlp(p["phi_x"], m, act=silu, compute_dtype=cd).float()
         upd = rij / (_sqrt0(d2) + 1.0) * coef * w[:, None]
-        x = x + segment_sum(upd, dst, n) / (segment_sum(w, dst, n)[:, None] + 1.0)
+        x = x + (shard(segment_sum(upd, dst, n), "nodes", None)
+                 / (shard(segment_sum(w, dst, n), "nodes")[:, None] + 1.0))
         # Feature update.
-        agg = segment_sum(m, dst, n)
+        agg = shard(segment_sum(m, dst, n), "nodes", None)
         h = h + mlp(p["phi_h"], torch.cat([h, agg], -1), act=silu, compute_dtype=cd)
     return h, x
 

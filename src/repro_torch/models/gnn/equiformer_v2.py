@@ -26,6 +26,11 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from repro_torch.sharding.local import (
+    fsdp_weight, index_select, is_dtensor, merge_dims, split_dim,
+)
+from repro_torch.sharding.local import index_copy as sharded_index_copy
+
 from repro_torch.graph.edgelist import Device, resolve_device
 from repro_torch.models.common import (
     dense,
@@ -41,6 +46,7 @@ from repro_torch.models.common import (
     tree_from_reference,
 )
 from repro_torch.models.gnn.mace import bessel_basis
+from repro_torch.sharding.rules import shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,24 +167,24 @@ def _so2_mix_nodes(layer, cfg, Z):
 
     def blockify(rows):  # [N, n_l, C] -> [N, H, n_l*ch]
         n_l = rows.shape[1]
-        return rows.reshape(n, n_l, h, ch).permute(0, 2, 1, 3).reshape(n, h, n_l * ch)
+        return merge_dims(split_dim(rows, 2, h, ch).permute(0, 2, 1, 3), 2)
 
     def unblockify(y, n_l):  # [N, H, n_l*ch] -> [N, n_l, C]
-        return y.reshape(n, h, n_l, ch).permute(0, 2, 1, 3).reshape(n, n_l, c)
+        return merge_dims(split_dim(y, 2, n_l, ch).permute(0, 2, 1, 3), 2)
 
     def mix(s, wgt):  # "nha,hab->nhb"
-        return torch.einsum("nha,hab->nhb", s, wgt)
+        return torch.einsum("nha,hab->nhb", s, fsdp_weight(wgt, s, in_dim=1))
 
     for m, idx_p, idx_n in _m_slices(cfg.l_max, cfg.m_max):
         n_l = len(idx_p)
         ip = torch.as_tensor(idx_p, device=Z.device)
         if m == 0:
-            y = mix(blockify(Z.index_select(1, ip)), layer["so2_m0_0"].to(cd))
+            y = mix(blockify(index_select(Z, 1, ip)), layer["so2_m0_0"].to(cd))
             rows.append(idx_p)
             mixed.append(unblockify(y, n_l))
         else:
-            sp = blockify(Z.index_select(1, ip))
-            sn = blockify(Z.index_select(1, torch.as_tensor(idx_n, device=Z.device)))
+            sp = blockify(index_select(Z, 1, ip))
+            sn = blockify(index_select(Z, 1, torch.as_tensor(idx_n, device=Z.device)))
             wr = layer[f"so2_m{m}_r"].to(cd)
             wi = layer[f"so2_m{m}_i"].to(cd)
             yp = mix(sp, wr) - mix(sn, wi)
@@ -186,6 +192,8 @@ def _so2_mix_nodes(layer, cfg, Z):
             rows += [idx_p, idx_n]
             mixed += [unblockify(yp, n_l), unblockify(yn, n_l)]
     index = torch.as_tensor(np.concatenate(rows), device=Z.device)
+    if is_dtensor(Z):
+        return sharded_index_copy(Z, 1, index, torch.cat(mixed, dim=1))
     return Z.index_copy(1, index, torch.cat(mixed, dim=1))
 
 
@@ -210,6 +218,7 @@ def forward(params, cfg: EquiformerV2Config, batch):
 
     for i in range(cfg.n_layers):
         p = params[f"layer{i}"]
+        X = shard(X, "nodes", None, None)
         radial_gate = mlp(p["radial"], rbf, act=silu, compute_dtype=cd)
 
         # Edge attention from the invariant (l=0) channels, per head.
@@ -225,11 +234,11 @@ def forward(params, cfg: EquiformerV2Config, batch):
         # Per-edge scalars commute with the head-block-diagonal SO(2) mix,
         # so weight at the EDGE, mix at the NODE (see module docstring).
         a_ch = alpha.repeat_interleave(ch_per_head, dim=1)  # [E, C]
-        gate = radial_gate.index_select(1, row_slice.clamp_min(0))  # [E, n_sh]
+        gate = index_select(radial_gate, 1, row_slice.clamp_min(0))  # [E, n_sh]
         row_gate = torch.where(passes, torch.ones_like(gate), gate)
         Xs = gather(X, src)  # [E, n_sh, C]  (read-once gather)
         weighted = Xs * row_gate[..., None] * a_ch[:, None, :]
-        Z = segment_sum(weighted, dst, n)  # [N, n_sh, C]
+        Z = shard(segment_sum(weighted, dst, n), "nodes", None, None)  # [N, n_sh, C]
         agg = _so2_mix_nodes(p, cfg, Z)  # [N, n_sh, C] node-side matmuls
 
         # Node update: equivariant residual + invariant-gated MLP on l=0.

@@ -27,6 +27,8 @@ from repro_torch.models.common import (
     softmax_cross_entropy,
     tree_from_reference,
 )
+from repro_torch.sharding.local import is_dtensor, take_rows
+from repro_torch.sharding.rules import shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,10 +89,14 @@ def forward_full(params, cfg: SAGEConfig, batch):
     src, dst = batch["src"], batch["dst"]
     w = batch["edge_mask"].to(cd)
     # segment_mean's count: every edge, the masked ones too, as the reference's.
-    cnt = segment_sum(torch.ones(src.shape, dtype=cd, device=h.device), dst, n)
+    cnt = shard(segment_sum(torch.ones(src.shape, dtype=cd, device=h.device), dst, n), "nodes")
     for i in range(cfg.n_layers):
-        agg = gather_segment_sum(h, src, dst, w, n) / cnt.clamp_min(1.0)[:, None]
+        h = shard(h, "nodes", None)
+        # a sharded step's partial sums onto the nodes' layout: a reduce-scatter
+        agg = shard(gather_segment_sum(h, src, dst, w, n), "nodes", None)
+        agg = agg / cnt.clamp_min(1.0)[:, None]
         h = _sage_layer(params[f"layer{i}"], h, agg, cd)
+    h = shard(h, "nodes", None)
     return dense(params["head"], h, cd).float()
 
 
@@ -102,9 +108,10 @@ def forward_sampled(params, cfg: SAGEConfig, batch):
     """
     cd = cfg.compute_dtype
     ft = batch["feat_table"]
-    f0 = ft[batch["hop0"].long()].to(cd)  # [R, F]
-    f1 = ft[batch["hop1"].long()].to(cd)  # [R, f1, F]
-    f2 = ft[batch["hop2"].long()].to(cd)  # [R, f1, f2, F]
+    rows = take_rows if is_dtensor(ft) else (lambda t, i: t[i.long()])
+    f0 = rows(ft, batch["hop0"]).to(cd)  # [R, F]
+    f1 = rows(ft, batch["hop1"]).to(cd)  # [R, f1, F]
+    f2 = rows(ft, batch["hop2"]).to(cd)  # [R, f1, f2, F]
     m1 = batch["hop1_mask"].to(cd)[..., None]
     m2 = batch["hop2_mask"].to(cd)[..., None]
 

@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from repro_torch.sharding.local import fsdp_weight, index_select
+
 from repro_torch.graph.edgelist import Device, resolve_device
 from repro_torch.models.common import (
     dense,
@@ -26,6 +28,7 @@ from repro_torch.models.common import (
     softmax_cross_entropy,
     tree_from_reference,
 )
+from repro_torch.sharding.rules import shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +73,7 @@ def spherical_harmonics_l2(rhat: torch.Tensor) -> torch.Tensor:
             1.0925484305920792 * x * z,
             0.5462742152960396 * (x * x - y * y),
         ],
-        dim=-1,
+        dim=1,
     )
 
 
@@ -144,14 +147,15 @@ def forward(params, cfg: MACEConfig, batch):
 
     for i in range(cfg.n_layers):
         p = params[f"layer{i}"]
+        h = shard(h, "nodes", None)
         R = mlp(p["radial"], rbf.to(cd), act=silu, compute_dtype=cd)
         R = R.reshape(-1, n_l, c)  # [E, n_l, C]
-        R_per_sh = R.index_select(1, l_of)  # [E, 9, C]
+        R_per_sh = index_select(R, 1, l_of)  # [E, 9, C]
         hj = gather(h, src)  # [E, C]
         msg = R_per_sh * Y[:, :, None].to(cd) * hj[:, None, :]  # [E, 9, C]
-        A = segment_sum(msg, dst, n)  # [N, 9, C]
+        A = shard(segment_sum(msg, dst, n), "nodes", None, None)  # [N, 9, C]
         inv = _invariants(A.float()).to(cd)  # [N, 8C]
-        b_basis = inv @ p["coupling"].to(cd)  # [N, C]
+        b_basis = inv @ fsdp_weight(p["coupling"], inv).to(cd)  # [N, C]
         h = h + mlp(p["update"], b_basis, act=silu, compute_dtype=cd)
     return h
 

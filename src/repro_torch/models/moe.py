@@ -35,6 +35,8 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.models.common import silu
+from repro_torch.sharding.local import fsdp_weight, is_dtensor, run_local
+from repro_torch.sharding.rules import shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,18 +85,38 @@ def moe_apply(
     compute_dtype=torch.bfloat16,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The MoE FFN on ``x``: ``(y [B, S, D] in x's dtype, {"moe_aux",
-    "moe_z", "moe_drop_frac"})``, float32 scalars on x's device."""
+    "moe_z", "moe_drop_frac"})``, float32 scalars on x's device.
+
+    On DTensors (the dry-run's sharded steps) the routing, dispatch and
+    combine run on each device's own groups (``run_local``) and the expert
+    FFN as DTensor products over ``[e, groups x capacity, d]`` buffers split
+    over the batch axes; with experts split too (expert parallelism) DTensor
+    moves the buffers between the layouts."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     n_tok = b * s
     gs = min(cfg.group_size, n_tok)
     if n_tok % gs:
         raise ValueError(f"tokens {n_tok} % group {gs}: the reference's groups do not pad")
-    g = n_tok // gs
+    cd = compute_dtype
+    if is_dtensor(x):
+        return _moe_sharded(p, cfg, x, gs, cd)
+    expert_in, route = _dispatch(p["router"]["w"], cfg, x, gs, cd)
+    out = _experts(p, expert_in, cd)
+    y, aux = _combine(cfg, out, route)
+    return y.reshape(b, s, d).to(x.dtype), aux
+
+
+def _dispatch(router_w, cfg: MoEConfig, x, gs: int, cd):
+    """Routing and dispatch of ``x``'s groups: ``(expert_in [e, g*cap, d],
+    route)``."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    g = b * s // gs
     cap = capacity(cfg, gs)
     xt = x.reshape(g, gs, d)
 
-    logits = xt.float() @ p["router"]["w"].float()  # [g, gs, e], the router in f32
+    logits = xt.float() @ router_w.float()  # [g, gs, e], the router in f32
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = top_k(probs, k)  # [g, gs, k]
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -110,7 +132,6 @@ def moe_apply(
     # Dispatch by index: kept claim (t, j) -> row (expert, group, rank); a
     # dropped claim -> the spare row e*g*cap, outside the experts' buffer.
     # Fixed shapes: no boolean index, so no read of the device.
-    cd = compute_dtype
     n_rows = e * g * cap
     group = torch.arange(g, device=x.device)[:, None, None]
     slot = torch.where(kept, (top_e * g + group) * cap + rank, n_rows).reshape(-1)
@@ -118,14 +139,31 @@ def moe_apply(
     buf = torch.zeros(n_rows + 1, d, dtype=cd, device=x.device)
     buf[slot] = rows
     expert_in = buf[:n_rows].view(e, g * cap, d)
+    return expert_in, (slot, kept, top_p, onehot, probs, logits)
 
-    h = silu(expert_in @ p["w_gate"].to(cd)) * (expert_in @ p["w_up"].to(cd))
-    out = (h @ p["w_down"].to(cd)).reshape(n_rows, d)
 
-    # Combine: each token's kept claims, weight in cd, summed in f32.
-    claims = out[slot.clamp_max(n_rows - 1)].view(g, gs, k, d).masked_fill(~kept[..., None], 0)
+def _experts(p, expert_in, cd):
+    """The expert FFN over the whole buffer, empty slots included."""
+    w_gate = fsdp_weight(p["w_gate"], expert_in, in_dim=1)
+    w_up = fsdp_weight(p["w_up"], expert_in, in_dim=1)
+    h = silu(expert_in @ w_gate.to(cd)) * (expert_in @ w_up.to(cd))
+    h = shard(h, "expert", "batch", "mlp")
+    out = h @ fsdp_weight(p["w_down"], h, in_dim=1).to(cd)
+    return shard(out, "expert", "batch", "embed")
+
+
+def _combine(cfg: MoEConfig, out, route):
+    """Each token's kept claims, weight in cd, summed in f32: ``(y [g, gs,
+    d] in cd, aux)``."""
+    slot, kept, top_p, onehot, probs, logits = route
+    e = cfg.n_experts
+    g, gs, k = kept.shape
+    d = out.shape[-1]
+    n_rows = out.shape[0] * out.shape[1]
+    cd = out.dtype
+    claims = out.reshape(n_rows, d)[slot.clamp_max(n_rows - 1)].view(g, gs, k, d)
+    claims = claims.masked_fill(~kept[..., None], 0)
     y = (claims.float() * top_p.to(cd).float()[..., None]).sum(2).to(cd)
-    y = y.reshape(b, s, d).to(x.dtype)
 
     # Aux losses (Switch): top-1 assignment share against router mass.
     me = onehot[:, :, 0, :].float().mean((0, 1))
@@ -134,3 +172,36 @@ def moe_apply(
     zloss = cfg.router_z_weight * torch.logsumexp(logits, dim=-1).square().mean()
     dropped = 1.0 - kept.any(-1).float().mean()
     return y, {"moe_aux": aux, "moe_z": zloss, "moe_drop_frac": dropped}
+
+
+def _moe_sharded(p, cfg: MoEConfig, x, gs: int, cd):
+    """:func:`moe_apply` on DTensors: each device routes and dispatches its
+    own groups (a group never spans devices: with fewer tokens a device
+    than a group, the batch is gathered first)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    b, s, d = x.shape
+    x = shard(x, "batch", None, None)
+    mesh = x.device_mesh
+    batch_axes = [i for i, pl in enumerate(x.placements) if isinstance(pl, Shard)]
+    local_tok = x.to_local().shape[0] * s
+    if local_tok % gs:
+        x = x.redistribute(mesh, (Replicate(),) * mesh.ndim)
+        batch_axes = []
+    router = p["router"]["w"]
+    router = router.redistribute(mesh, (Replicate(),) * mesh.ndim)
+    rows_pl = tuple(Shard(1) if i in batch_axes else Replicate() for i in range(mesh.ndim))
+    tok_pl = tuple(Shard(0) if i in batch_axes else Replicate() for i in range(mesh.ndim))
+    expert_in, *route = run_local(
+        lambda xl, w: (lambda ei, r: (ei, *r))(*_dispatch(w, cfg, xl, gs, cd)),
+        (x, router), (rows_pl,) + (tok_pl,) * 6)
+    expert_in = shard(expert_in, "expert", "batch", "embed")
+    out = _experts(p, expert_in, cd)
+    out = out.redistribute(mesh, rows_pl)
+    mean_pl = tuple(Partial("avg") if i in batch_axes else Replicate() for i in range(mesh.ndim))
+    y, aux, zloss, dropped = run_local(
+        lambda o, *r: (lambda yy, a: (yy, a["moe_aux"], a["moe_z"], a["moe_drop_frac"]))(
+            *_combine(cfg, o, r)),
+        (out, *route), (tok_pl, mean_pl, mean_pl, mean_pl))
+    aux_d = {"moe_aux": aux, "moe_z": zloss, "moe_drop_frac": dropped}
+    return y.reshape(b, s, d).to(x.dtype), aux_d

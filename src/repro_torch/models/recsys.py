@@ -26,6 +26,9 @@ from repro_torch.models.common import (
     segment_sum,
     tree_from_reference,
 )
+from repro_torch.sharding.local import is_dtensor, take_last, whole_last
+from repro_torch.sharding.local import take_rows as sharded_take_rows
+from repro_torch.sharding.rules import shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +97,8 @@ class _TableRows(torch.autograd.Function):
 def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``jnp.take(table, ids, axis=0)`` for ids of any shape: ``ids.shape +
     table.shape[1:]``."""
+    if is_dtensor(table):
+        return sharded_take_rows(table, ids)
     rows = _TableRows.apply(table, ids.reshape(-1).long())
     return rows.reshape(tuple(ids.shape) + tuple(table.shape[1:]))
 
@@ -151,13 +156,13 @@ def user_embedding(params, cfg: TwoTowerConfig, user_id, hist, hist_mask):
     cd = cfg.compute_dtype
     ue = take_rows(params["user_table"], user_id)  # [B, D]
     hb = embedding_bag_padded(params["item_table"], hist, hist_mask, "mean")
-    z = torch.cat([ue, hb], dim=-1).to(cd)
+    z = shard(torch.cat([ue, hb], dim=-1).to(cd), "batch", None)
     return _unit(mlp(params["user_tower"], z, act=torch.relu, compute_dtype=cd))
 
 
 def item_embedding(params, cfg: TwoTowerConfig, item_id):
     cd = cfg.compute_dtype
-    z = take_rows(params["item_table"], item_id).to(cd)
+    z = shard(take_rows(params["item_table"], item_id).to(cd), "batch", None)
     return _unit(mlp(params["item_tower"], z, act=torch.relu, compute_dtype=cd))
 
 
@@ -165,11 +170,15 @@ def loss_in_batch_softmax(params, cfg: TwoTowerConfig, batch):
     """Sampled softmax over in-batch negatives with logQ correction."""
     u = user_embedding(params, cfg, batch["user_id"], batch["hist"], batch["hist_mask"])
     v = item_embedding(params, cfg, batch["item_id"])
-    logits = (u @ v.T) / cfg.temperature  # [B, B]
+    logits = shard((u @ v.T) / cfg.temperature, "batch", "vocab")  # [B, B]
     logits = logits - batch["logq"][None, :]  # logQ correction
     labels = torch.arange(logits.shape[0], device=logits.device)
+    if is_dtensor(logits):  # each device its rows' diagonal entries
+        logits = whole_last(logits)
+        ll = take_last(logits, labels)
+    else:
+        ll = logits.diagonal()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.diagonal()
     loss = (lse - ll).mean()
     acc = (logits.argmax(-1) == labels).float().mean()
     return loss, {"loss": loss, "in_batch_acc": acc}
@@ -186,6 +195,6 @@ def retrieval_topk(params, cfg: TwoTowerConfig, batch, k: int = 100):
     """One query scored against a large candidate set: one matmul and a
     top-k (not a loop), as the retrieval_cand shape requires."""
     u = user_embedding(params, cfg, batch["user_id"], batch["hist"], batch["hist_mask"])  # [1, D]
-    v = item_embedding(params, cfg, batch["cand_ids"])  # [Ncand, D]
+    v = shard(item_embedding(params, cfg, batch["cand_ids"]), "vocab", None)  # [Ncand, D]
     scores = (u @ v.T)[0] / cfg.temperature  # [Ncand]
     return torch.topk(scores, k)

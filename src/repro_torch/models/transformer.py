@@ -16,7 +16,9 @@ so :func:`params_from_reference` is a copy of the JAX tree.  The layer scan
 is a Python loop (:func:`_layers`); ``remat`` is
 ``torch.utils.checkpoint`` around each layer when grad is on (the
 reference's ``jax.checkpoint`` of the scan body) and changes no output.
-``shard(...)`` is the identity outside a mesh and is dropped.  A stacked
+``shard(...)`` (``sharding/rules.py``) is the identity outside a sharding
+context and on plain tensors; the dry-run's DTensor steps take the
+reference's activation constraints from it.  A stacked
 leaf may also be a sequence of per-layer tensors (``layer_params`` takes
 ``node[i]`` of either): the train step passes per-layer views that way.
 """
@@ -43,6 +45,10 @@ from repro_torch.models.common import (
     apply_rope, dense, layernorm, rmsnorm, silu, softmax_cross_entropy, trunc_normal,
 )
 from repro_torch.models.moe import MoEConfig, moe_apply, moe_spec
+from repro_torch.sharding.local import (
+    fsdp_weight, is_dtensor, merge_dims, roll, split_dim, take_rows,
+)
+from repro_torch.sharding.rules import shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +94,17 @@ class TransformerConfig:
             ffn = self.moe.n_experts * 3 * d * f + d * self.moe.n_experts
         else:
             ffn = (3 if self.mlp_type == "swiglu" else 2) * d * f
+        per_layer = attn + ffn + 2 * d
+        head = 0 if self.tie_embeddings else d * v
+        return v * d + self.n_layers * per_layer + d + head
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE top-k), for 6 N_active D."""
+        if self.moe is None:
+            return self.param_count()
+        d, f, v = self.d_model, self.d_ff, self.vocab
+        attn = d * self.d_q + 2 * d * self.d_kv + self.d_q * d
+        ffn = self.moe.top_k * 3 * d * f + d * self.moe.n_experts
         per_layer = attn + ffn + 2 * d
         head = 0 if self.tie_embeddings else d * v
         return v * d + self.n_layers * per_layer + d + head
@@ -236,17 +253,22 @@ def _norm(cfg, p, x):
 
 
 def _embed(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"]["w"][tokens.long()].to(cfg.compute_dtype)
+    w = params["embed"]["w"]
+    x = take_rows(w, tokens) if is_dtensor(w) else w[tokens.long()]
+    return shard(x.to(cfg.compute_dtype), "batch", None, "embed")
 
 
 def _attention_block(cfg, p, x, positions):
     """Full-sequence causal attention (scoring / prefill); returns (out, k, v)."""
     cd = cfg.compute_dtype
     b, s, _ = x.shape
-    h = _norm(cfg, p["ln1"], x)
-    q = dense(p["attn"]["wq"], h, cd).reshape(b, s, cfg.n_heads, cfg.d_head)
-    k = dense(p["attn"]["wk"], h, cd).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-    v = dense(p["attn"]["wv"], h, cd).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    h = shard(_norm(cfg, p["ln1"], x), "batch", "seq", None)
+    q = shard(dense(p["attn"]["wq"], h, cd), "batch", None, "heads")
+    k = shard(dense(p["attn"]["wk"], h, cd), "batch", None, "kv_heads")
+    v = shard(dense(p["attn"]["wv"], h, cd), "batch", None, "kv_heads")
+    q = split_dim(q, -1, cfg.n_heads, cfg.d_head)
+    k = split_dim(k, -1, cfg.n_kv_heads, cfg.d_head)
+    v = split_dim(v, -1, cfg.n_kv_heads, cfg.d_head)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     out = gqa_attention(
@@ -255,7 +277,9 @@ def _attention_block(cfg, p, x, positions):
         window=cfg.window, impl=cfg.attn_impl,
         q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
     )
-    out = dense(p["attn"]["wo"], out.reshape(b, s, cfg.d_q), cd)
+    out = shard(merge_dims(out, 2), "batch", None, "heads")
+    # the partial sum onto the residual's layout: a reduce-scatter
+    out = shard(dense(p["attn"]["wo"], out, cd), "batch", "seq", "embed")
     return x + out.to(x.dtype), k, v
 
 
@@ -273,17 +297,18 @@ def _ffn_block(cfg, p, x):
     """The FFN sublayer: (x + ffn(norm(x)), aux), aux the MoE's
     ``moe_aux``/``moe_z``/``moe_drop_frac`` or {} for a dense MLP."""
     cd = cfg.compute_dtype
-    h = _norm(cfg, p["ln2"], x)
+    h = shard(_norm(cfg, p["ln2"], x), "batch", "seq", None)
     aux = {}
     if cfg.moe is not None:
         y, aux = moe_apply(p["moe"], cfg.moe, h, cd)
     elif cfg.mlp_type == "swiglu":
-        g = dense(p["mlp"]["w_gate"], h, cd)
-        u = dense(p["mlp"]["w_up"], h, cd)
+        g = shard(dense(p["mlp"]["w_gate"], h, cd), "batch", None, "mlp")
+        u = shard(dense(p["mlp"]["w_up"], h, cd), "batch", None, "mlp")
         y = dense(p["mlp"]["w_down"], silu(g) * u, cd)
     else:
-        u = dense(p["mlp"]["w_up"], h, cd)
+        u = shard(dense(p["mlp"]["w_up"], h, cd), "batch", None, "mlp")
         y = dense(p["mlp"]["w_down"], _gelu(u), cd)
+    y = shard(y, "batch", "seq", "embed")  # the partial sum: a reduce-scatter
     return x + y.to(x.dtype), aux
 
 
@@ -291,16 +316,20 @@ def _logits(cfg, params, x) -> torch.Tensor:
     """f32 logits of the compute-dtype operands (the reference's
     preferred_element_type=float32)."""
     cd = cfg.compute_dtype
-    h = _norm(cfg, params["final_norm"], x).to(cd).float()
+    # the contraction dim (d_model) unsharded going into the vocab projection
+    h = shard(_norm(cfg, params["final_norm"], x), "batch", None, None).to(cd).float()
     if cfg.tie_embeddings:
-        return h @ params["embed"]["w"].to(cd).float().T
-    return h @ params["lm_head"]["w"].to(cd).float()
+        w = fsdp_weight(params["embed"]["w"], h, in_dim=1)
+        return shard(h @ w.to(cd).float().T, "batch", None, "vocab")
+    w = fsdp_weight(params["lm_head"]["w"], h)
+    return shard(h @ w.to(cd).float(), "batch", None, "vocab")
 
 
 def _layer(cfg, p, x, positions):
     """One layer: (x', moe_aux + moe_z, 0 without experts)."""
     x, _, _ = _attention_block(cfg, p, x, positions)
     x, aux = _ffn_block(cfg, p, x)
+    x = shard(x, "batch", "seq", "embed")
     if not aux:
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux["moe_aux"] + aux["moe_z"]
@@ -385,22 +414,43 @@ def prefill(params, cfg: TransformerConfig, tokens: torch.Tensor, extra_slots: i
     m = spec.max_len
     extra = extra_slots if cfg.window is None else 0
     shape = (cfg.n_layers, b, m + extra, cfg.n_kv_heads, cfg.d_head)
-    cache = {"k": torch.zeros(shape, dtype=spec.dtype, device=dev),
-             "v": torch.zeros(shape, dtype=spec.dtype, device=dev)}
+    sharded = is_dtensor(x)
+    if sharded:  # the reference's scan stacks each layer's k, v
+        cache = {"k": [], "v": []}
+    else:
+        cache = {"k": torch.zeros(shape, dtype=spec.dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=spec.dtype, device=dev)}
     keep = min(s, m)
     slots = (positions[-keep:] % m).long()
     for i in range(cfg.n_layers):
         p = layer_params(params, i)
         x, k, v = _attention_block(cfg, p, x, positions)
         x, _ = _ffn_block(cfg, p, x)
-        if cfg.window is None:
+        x = shard(x, "batch", None, "embed")
+        if sharded:
+            if cfg.window is not None:
+                k, v = (_rolled(t[:, -keep:], s, keep, m) for t in (k, v))
+            cache["k"].append(k.to(spec.dtype))
+            cache["v"].append(v.to(spec.dtype))
+        elif cfg.window is None:
             cache["k"][i, :, :s] = k
             cache["v"][i, :, :s] = v
         else:
             cache["k"][i][:, slots] = k[:, -keep:].to(spec.dtype)
             cache["v"][i][:, slots] = v[:, -keep:].to(spec.dtype)
+    if sharded:
+        cache = {key: torch.nn.functional.pad(torch.stack(ts), (0, 0, 0, 0, 0, extra))
+                 if extra else torch.stack(ts) for key, ts in cache.items()}
     logits = _logits(cfg, params, x[:, -1:, :])
     return logits[:, 0], cache, s
+
+
+def _rolled(t: torch.Tensor, s: int, keep: int, m: int) -> torch.Tensor:
+    """The last ``keep`` positions ``[B, keep, ...]`` in a rolling cache's
+    slots (slot = position % m, unfilled slots zero)."""
+    if keep < m:
+        return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, m - keep))
+    return roll(t, (s - keep) % m, 1)
 
 
 @torch.inference_mode()
@@ -422,14 +472,14 @@ def decode_step(params, cfg: TransformerConfig, cache, tokens: torch.Tensor, cur
         p = layer_params(params, i)
         ck, cv = cache["k"][i], cache["v"][i]
         h = _norm(cfg, p["ln1"], x)
-        q = dense(p["attn"]["wq"], h, cd).reshape(b, 1, cfg.n_heads, cfg.d_head)
-        k = dense(p["attn"]["wk"], h, cd).reshape(b, 1, cfg.n_kv_heads, cfg.d_head)
-        v = dense(p["attn"]["wv"], h, cd).reshape(b, 1, cfg.n_kv_heads, cfg.d_head)
+        q = split_dim(dense(p["attn"]["wq"], h, cd), -1, cfg.n_heads, cfg.d_head)
+        k = split_dim(dense(p["attn"]["wk"], h, cd), -1, cfg.n_kv_heads, cfg.d_head)
+        v = split_dim(dense(p["attn"]["wv"], h, cd), -1, cfg.n_kv_heads, cfg.d_head)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         cache_update(ck, cv, k, v, cur, rolling)
         out = decode_attention(q, ck, cv, cur, window=cfg.window, impl=cfg.attn_impl)
-        x = x + dense(p["attn"]["wo"], out.reshape(b, 1, cfg.d_q), cd).to(x.dtype)
+        x = x + dense(p["attn"]["wo"], merge_dims(out, 2), cd).to(x.dtype)
         x, _ = _ffn_block(cfg, p, x)
     logits = _logits(cfg, params, x)
     return logits[:, 0], cache, cur_len + 1

@@ -5,6 +5,7 @@ from repro_torch.optim.adamw import (
     AdamWConfig,
     AdamWState,
     Quantized,
+    abstract_state,
     apply_updates,
     global_norm,
     init_state,
@@ -22,6 +23,7 @@ __all__ = [
     "AdamWState",
     "CompressionConfig",
     "Quantized",
+    "abstract_state",
     "apply_updates",
     "compress_decompress_psum",
     "constant",

@@ -142,19 +142,33 @@ def _write(m, a: int, b: int, x: torch.Tensor, cfg: AdamWConfig, nonneg: bool) -
 def apply_updates(params, grads, state: AdamWState, cfg: AdamWConfig):
     """One AdamW step, IN PLACE: returns ``(params, state, {"grad_norm"})``,
     the same objects, updated.  ``grads`` (a tree like ``params``) is
-    consumed: it is scaled in place by the clip factor."""
+    consumed: it is scaled in place by the clip factor.
+
+    DTensor parameters (the dry-run's sharded steps) update each device's
+    local shards: the update is elementwise (per block for int8 moments,
+    whose blocks are the local shard's), so only the global norm crosses
+    devices, one all-reduce of the local sums of squares per sharding
+    pattern.  Gradients are first redistributed to their parameter's
+    placements."""
     step = state.step
     step.add_(1)
-    gnorm = global_norm(grads)
+    ps, gs = tree_util.leaves(params), tree_util.leaves(grads)
+    mus, nus = _moment_leaves(state.mu), _moment_leaves(state.nu)
+    if ps and _is_dtensor(ps[0]):
+        gs = [g if tuple(g.placements) == tuple(p.placements)
+              else g.redistribute(p.device_mesh, p.placements) for p, g in zip(ps, gs)]
+        gnorm = _sharded_norm(gs)
+        ps, gs, mus, nus = ([_local(x, p) for x, p in zip(xs, ps)] for xs in (ps, gs, mus, nus))
+        step = step.to_local() if _is_dtensor(step) else step
+    else:
+        gnorm = global_norm(grads)
     factor = None
     if cfg.clip_norm is not None:
         factor = (cfg.clip_norm / gnorm.clamp_min(1e-9)).clamp_max(1.0)
     b1c = 1.0 - torch.pow(cfg.b1, step.float())
     b2c = 1.0 - torch.pow(cfg.b2, step.float())
     chunk = CHUNK // cfg.block * cfg.block
-    moments = zip(tree_util.leaves(params), tree_util.leaves(grads),
-                  _moment_leaves(state.mu), _moment_leaves(state.nu))
-    for p, g, mu_e, nu_e in moments:
+    for p, g, mu_e, nu_e in zip(ps, gs, mus, nus):
         n = p.numel()
         pf, gf = p.view(-1), g.view(-1)
         for a in range(0, n, chunk):
@@ -171,6 +185,49 @@ def apply_updates(params, grads, state: AdamWState, cfg: AdamWConfig):
             _write(mu_e, a, b, mu, cfg, False)
             _write(nu_e, a, b, nu, cfg, True)
     return params, state, {"grad_norm": gnorm}
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _local(x, like):
+    """A leaf's local shard (a ``Quantized`` moment: its local blocks, over
+    the local shape of its parameter ``like``)."""
+    if isinstance(x, Quantized):
+        return Quantized(q=x.q.to_local(), scale=x.scale.to_local(),
+                         shape=tuple(like.to_local().shape))
+    return x.to_local()
+
+
+def _sharded_norm(gs) -> torch.Tensor:
+    """The global norm of DTensor gradients: each leaf's local sum of
+    squares, summed over the leaves that shard alike, then one all-reduce
+    of each such sum over the mesh dimensions that shard it."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    groups: dict = {}
+    for g in gs:
+        dims = tuple(i for i, pl in enumerate(g.placements) if isinstance(pl, Shard))
+        ss = _sum_squares(g.to_local())
+        prev = groups.get(dims)
+        groups[dims] = (ss if prev is None else prev[0] + ss, g.device_mesh)
+    total = None
+    for dims, (ss, mesh) in groups.items():
+        pl = [Partial() if i in dims else Replicate() for i in range(mesh.ndim)]
+        full = DTensor.from_local(ss, mesh, pl, run_check=False).full_tensor()
+        total = full if total is None else total + full
+    return torch.sqrt(total)
+
+
+def abstract_state(params, cfg: AdamWConfig) -> AdamWState:
+    """:func:`init_state` of ``params``' shapes on the meta device: the
+    optimizer state's shapes and dtypes, nothing allocated."""
+    meta = tree_util.tree_map(
+        lambda p: torch.empty(tuple(p.shape), dtype=p.dtype, device="meta"), params)
+    return init_state(meta, cfg)
 
 
 def _moment_leaves(tree):
