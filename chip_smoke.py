@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the port's four CUDA kernels from the sources in this checkout (one
+Builds the port's five CUDA kernels from the sources in this checkout (one
 ``nvcc`` each, all started together), holds each against its plain PyTorch
-version on the card, then drives the port's twelve paths through the
+version on the card, then drives the port's thirteen paths through the
 entry points a user calls:
 
 * Algorithm 1 on the geometric ladder, ``solve(edges,
@@ -30,11 +30,11 @@ entry points a user calls:
   seed=)``), local mode over the LIVEJOURNAL graph (64 seeds), the
   resilience ladder under a seeded fault storm with a turnstile density
   service attached (K3 on every update batch, K1 on its sample peel), a
-  fresh process that loads the four libraries from the cache of built
+  fresh process that loads the five libraries from the cache of built
   kernels with no ``nvcc``, and the golden fixture's serve entries;
 * the semi-streaming substrate: livejournal_md written to a memmap store
   on disk and streamed in 2^20-edge chunks by ``StreamingDensest`` with its
-  node state on the card (no kernel of K1-K4; ``index_add_``), against the
+  node state on the card (no kernel of K1-K4b; ``index_add_``), against the
   in-memory exact ladder, with the spill ladder, a kill and resume, and a
   seeded fault storm; the front door on flickr_sm against the CPU driver;
 * the §5.2 mesh substrate on a one-rank NCCL mesh (``make_mesh``):
@@ -66,13 +66,14 @@ entry points a user calls:
   remat on, ``attn_impl='auto'``: the chunked path, bf16 compute, f32
   parameters and moments): step 1 under 'auto' against 'xla' and a
   no-diagonal control, three ``make_train_step`` steps (AdamW in place),
-  one profiled; ``flash_attention_trainable`` (K4's forward, the chunked
-  backward) at the same attention shape against the chunked vjp and dense
+  one profiled; ``flash_attention_trainable`` (K4's forward with its
+  log-sum-exp, the backward kernel K4b) at the same attention shape
+  against K4b's plain version (the chunked vjp), three controls and dense
   autodiff; the golden training entries of the five LM archs' REDUCED
   configs; and ``python -m repro_torch.launch.train`` killed and resumed in
   child processes, bitwise;
 * the GNN and recsys families at their published widths (no kernel of
-  K1-K4: gathers, ``index_add_`` and GEMMs): graphsage-reddit on the
+  K1-K4b: gathers, ``index_add_`` and GEMMs): graphsage-reddit on the
   232,965-node, 114.6M-edge minibatch_lg graph through the layered sampler
   and full batch on ogb_products (2.45M nodes, 61.9M edges), each GNN arch
   on 128 molecules, equiformer-v2 on full_graph_sm, each step 1 at bf16
@@ -201,19 +202,20 @@ def phase_environment() -> str:
 
 
 def phase_build() -> None:
-    """Builds K1, K2, K3 and K4 from this checkout's sources, one ``nvcc``
-    per source, all started together.  Then K4's kernels as ``ptxas`` built
-    them (registers, spills, shared memory) and the count of ``wgmma``
-    (HGMMA) and TMA load (UTMALDG) instructions in its library's SASS;
-    K1's, K2's and K3's atomic and warp-exchange instructions by form (K1
-    must have no shared atomic and a global reduction)."""
+    """Builds K1, K2, K3, K4 and K4b from this checkout's sources, one
+    ``nvcc`` per source, all started together.  Then K4's and K4b's kernels
+    as ``ptxas`` built them (registers, spills, shared memory) and the count
+    of ``wgmma`` (HGMMA) and TMA load (UTMALDG) instructions in each
+    library's SASS; K1's, K2's and K3's atomic and warp-exchange
+    instructions by form (K1 must have no shared atomic and a global
+    reduction)."""
     from repro_torch.kernels import BUILD_LOG, library_path, load_library
     from repro_torch.kernels.count_sketch import ops as cs_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.l0_sampler import ops as l0_ops
     from repro_torch.kernels.peel_degree import ops as pd_ops
 
-    sources = [pd_ops.SOURCE, cs_ops.SOURCE, l0_ops.SOURCE, fa_ops.SOURCE]
+    sources = [pd_ops.SOURCE, cs_ops.SOURCE, l0_ops.SOURCE, fa_ops.SOURCE, fa_ops.BWD_SOURCE]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(load_library, sources))
@@ -224,15 +226,18 @@ def phase_build() -> None:
             all_builds_wall_seconds=round(wall, 3))
         for line in str(info["ptxas"]).splitlines():
             print(f"  {line}", flush=True)
-    ptxas = str(BUILD_LOG.get(fa_ops.SOURCE.name, {}).get("ptxas", ""))
-    for name, props in _ptxas_kernels(ptxas).items():
-        log("build.k4", kernel=name, **props)
-    found = sass_counts(library_path(fa_ops.SOURCE), r"\b(?:HGMMA|UTMALDG|MUFU\.EX2|HMMA)\b")
-    counts = {op: found.get(op, 0) for op in ("HGMMA", "UTMALDG", "MUFU.EX2", "HMMA")}
-    log("build.k4", sass_instructions=counts, bf16_dynamic_smem_bytes={
-        dp: fa_ops.bf16_smem_bytes(dp) for dp in (64, 128)})
-    if not (counts["HGMMA"] and counts["UTMALDG"]):
-        raise AssertionError(f"K4's library has no wgmma or no TMA load: {counts}")
+    for label, source, smem in (
+            ("k4", fa_ops.SOURCE, lambda dp: fa_ops.bf16_smem_bytes(dp)),
+            ("k4b", fa_ops.BWD_SOURCE, lambda dp: fa_ops.bwd_bf16_smem_bytes(dp))):
+        ptxas = str(BUILD_LOG.get(source.name, {}).get("ptxas", ""))
+        for name, props in _ptxas_kernels(ptxas).items():
+            log(f"build.{label}", kernel=name, **props)
+        found = sass_counts(library_path(source), r"\b(?:HGMMA|UTMALDG|MUFU\.EX2|HMMA)\b")
+        counts = {op: found.get(op, 0) for op in ("HGMMA", "UTMALDG", "MUFU.EX2", "HMMA")}
+        log(f"build.{label}", sass_instructions=counts,
+            bf16_dynamic_smem_bytes={dp: smem(dp) for dp in (64, 128)})
+        if not (counts["HGMMA"] and counts["UTMALDG"]):
+            raise AssertionError(f"{label}'s library has no wgmma or no TMA load: {counts}")
     # K1's and K2's shared-memory atomics (a compare-and-swap loop shows as
     # ATOMS.CAST.SPIN) and warp exchange; K1's and K3's global reductions.
     warp_ops = r"\b(?:ATOMS|MATCH|SHFL|VOTE|REDG?|ATOMG?)\.[\w.]+"
@@ -266,7 +271,8 @@ def _cuda_tool(name: str) -> str:
 
 def _ptxas_kernels(ptxas: str) -> dict:
     """{kernel: {registers, spill_stores, spill_loads, static_smem}} from
-    ``ptxas -v`` output, by the demangled-enough kernel name."""
+    ``ptxas -v`` output, by the demangled-enough kernel name (its integer
+    and bool template arguments: ``flash_fwd_bf16<128,1>``)."""
     import re
 
     out, name = {}, None
@@ -274,9 +280,12 @@ def _ptxas_kernels(ptxas: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             raw = m.group(1)
-            kern = re.search(r"(flash_fwd_bf16|flash_fwd_f32|flash_plan)(?:ILi(\d+)E)?", raw)
-            name = raw if kern is None else kern.group(1) + (
-                f"<{kern.group(2)}>" if kern.group(2) else "")
+            kern = re.search(r"(flash_[a-z0-9_]+?)(I(?:L[a-z]\d+E)+E)?(?=E|$)", raw)
+            if kern is None:
+                name = raw
+            else:
+                args = re.findall(r"L[a-z](\d+)E", kern.group(2) or "")
+                name = kern.group(1) + (f"<{','.join(args)}>" if args else "")
             out[name] = {}
             continue
         if name is None:
@@ -1522,7 +1531,7 @@ def phase_serve_resilience(flickr, flickr_cpu) -> None:
 
 
 def phase_build_cache() -> None:
-    """``build.cache``: a fresh process loads all four libraries from the
+    """``build.cache``: a fresh process loads all five libraries from the
     directory ``phase_build`` filled and runs nvcc zero times; a second
     fresh process asks for K3 with one nvcc flag changed (-O3 -> -O2)
     through ``load_library``'s build arguments and must miss and build."""
@@ -1533,7 +1542,7 @@ def phase_build_cache() -> None:
     from repro_torch.kernels.l0_sampler import ops as l0_ops
     from repro_torch.kernels.peel_degree import ops as pd_ops
 
-    sources = [str(o.SOURCE) for o in (pd_ops, cs_ops, l0_ops, fa_ops)]
+    sources = [str(o.SOURCE) for o in (pd_ops, cs_ops, l0_ops, fa_ops)] + [str(fa_ops.BWD_SOURCE)]
     warm = (
         "import json, time; from pathlib import Path; from repro_torch import kernels\n"
         "def never(*a): raise SystemExit('nvcc ran')\n"
@@ -1565,7 +1574,7 @@ def phase_build_cache() -> None:
         out[name] = json.loads(proc.stdout.strip().splitlines()[-1])
         out[name]["process_s"] = time.perf_counter() - t0
     w, c = out["warm"], out["changed_flag"]
-    if w["build_log"] or (w["hits"], w["misses"]) != (4, 0):
+    if w["build_log"] or (w["hits"], w["misses"]) != (len(sources), 0):
         raise AssertionError(f"build.cache: a warm directory built {w}")
     if (c["hits"], c["misses"]) != (0, 1) or list(c["build_log"]) != ["l0_sampler.cu"]:
         raise AssertionError(f"build.cache: a changed nvcc flag did not miss {c}")
@@ -1684,7 +1693,7 @@ def phase_stream(host, ladder, ladder_peak_mb, smi: str) -> None:
     survivors; killed after 3 passes and resumed; under a seeded fault
     storm; each bitwise equal to the first run.  Host syncs, bytes to the
     card and edges streamed per pass, peak device memory against the
-    ladder's, K1-K4 launches (none), one pass's profile and its host-read
+    ladder's, K1-K4b launches (none), one pass's profile and its host-read
     time."""
     import tempfile
 
@@ -1948,13 +1957,13 @@ def phase_mesh_directed(dg, mesh) -> None:
 
 
 def _kernel_counters():
-    """The four kernels' launch-counting wrappers."""
+    """The five kernels' launch-counting wrappers."""
     from repro_torch.kernels.count_sketch.ops import count_sketch_update
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bwd
     from repro_torch.kernels.l0_sampler.ops import l0_delta
     from repro_torch.kernels.peel_degree.ops import tiled_degrees
 
-    return (tiled_degrees, count_sketch_update, l0_delta, flash_attention)
+    return (tiled_degrees, count_sketch_update, l0_delta, flash_attention, flash_attention_bwd)
 
 
 # -- Algorithms 2 and 3 and the sweep driver, through K1 and K2 ---------------
@@ -2898,6 +2907,9 @@ TRAIN_GRAD_TOL = 5e-2  # ||G_auto - G_xla|| / ||G_xla|| over every leaf
 # The trainable route's f32 gradients against dense autodiff, O(1)
 # cotangents: the reference test's limits (test_flash_trainable_grads_match_dense).
 TRAINABLE_GRAD_TOL = dict(rtol=2e-4, atol=1e-5)
+# K4's log-sum-exp against the plain one (f32 scores summed in another
+# order, then exp2/log2 in base 2): absolute, on values of about 5-10.
+LSE_TOL = 1e-4
 TRAIN_CLI_STEPS, TRAIN_CLI_EVERY = 20, 10
 
 
@@ -3040,7 +3052,8 @@ def phase_train_steps(params, batches, step1_loss, smi: str) -> dict:
     phase_profile("llama_train_step", lambda: step(params, opt, next(extra)), span=spans,
                   kinds=TRAIN_KERNEL_KINDS, card=smi)
     del opt
-    return {"launches": sum(r["kernels"]["k4"] for r in rows), "steps": rows}
+    return {"launches": sum(r["kernels"]["k4"] for r in rows),
+            "bwd_launches": sum(r["kernels"]["k4_bwd"] for r in rows), "steps": rows}
 
 
 # Kernel-name classes of the training profile (cuBLAS/cuBLASLt GEMMs, and
@@ -3065,26 +3078,147 @@ def train_attention_bound_ms(q, k, pairs: int) -> tuple:
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def k4b_bound_ms(q, k, pairs: int) -> tuple:
+    """Least time for K4b alone: 10·D FLOPs per allowed pair and query head
+    (s, dp, dv, dq and dk, 2·D each) at the dtype's peak; bytes: q, k, v,
+    out, dout and the log-sum-exp read, dq, dk, dv written once.  (ms,
+    'operations' or 'bytes')."""
+    import torch
+
+    b, sq, hq, d = q.shape
+    flops = 10.0 * d * hq * b * pairs
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * b * hq * sq
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+# K4b against its plain version, the chunked vjp at the same chunks, on
+# (dq, dk, dv) together, two limits.  Elementwise, |got - want| <= elem *
+# (scale + |want|), with scale the rms of the plain version's three
+# gradients: a gradient that is rounding noise in both (dq and dk of a
+# query with one allowed key, which are 0 in exact arithmetic) is held to
+# the others' scale, a large one relatively.  And the relative L2 error
+# over the three.  f32: summation order.  bf16: K4b rounds P and dS to
+# bf16 for wgmma where the chunked vjp keeps them in f32, and both take
+# delta from a bf16 output and round their own; at the main shape the
+# chunked vjp itself lies up to 0.06 of (scale + |truth|) off the f64
+# dense gradient in the first rows and keys (`vs_f64_truth` in
+# [train.k4]), so the elementwise limit is 2^-3, with the L2 limit at
+# 2^-7.  Three controls must fail them (PERF.md has the readings on both
+# sides).
+TRAINABLE_BWD_TOL = {"float32": dict(elem=2.0 ** -12, rel_l2=2.0 ** -14),
+                     "bfloat16": dict(elem=2.0 ** -3, rel_l2=2.0 ** -7)}
+
+
+def grad_errors(got, want, dtype: str) -> dict:
+    """Readings of (dq, dk, dv) ``got`` against ``want`` at
+    TRAINABLE_BWD_TOL: elements outside the elementwise limit, the relative
+    L2 error over the three and whether it is past its limit, the largest
+    |got - want| / (scale + |want|) and the largest absolute error."""
+    tol = TRAINABLE_BWD_TOL[dtype]
+    want = [w.double() for w in want]
+    scale = (sum(w.square().sum() for w in want) / sum(w.numel() for w in want)).sqrt()
+    outside, num, den, worst, max_abs = 0, 0.0, 0.0, 0.0, 0.0
+    for g, w in zip(got, want):
+        err = (g.double() - w).abs()
+        outside += int((err > tol["elem"] * (scale + w.abs())).sum())
+        worst = max(worst, (err / (scale + w.abs())).max().item())
+        max_abs = max(max_abs, err.max().item())
+        num += err.square().sum().item()
+        den += w.square().sum().item()
+    rel = (num / max(den, 1e-300)) ** 0.5
+    return dict(outside=outside, rel_l2=rel, rel_l2_outside=rel > tol["rel_l2"],
+                max_rel_err=worst, max_abs_err=max_abs)
+
+
+def dense_grads(q, k, v, dout, q_positions, kv_positions, window, compute, *,
+                drop_delta: bool = False):
+    """(dq, dk, dv) of dense attention in the ``compute`` dtype, delta =
+    rowsum(P * dP) (= rowsum(dout * out) in exact arithmetic): float64 is
+    the exact gradient of the bf16 or f32 inputs; ``drop_delta`` leaves
+    delta out of dS = P * (dP - delta), a fault a wrong backward could
+    have."""
+    import torch
+
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / d ** 0.5
+    qf = q.to(compute).reshape(b, sq, hkv, g, d)
+    kf, vf = k.to(compute), v.to(compute)
+    do = dout.to(compute).reshape(b, sq, hkv, g, d)
+    qp, kp = q_positions.long(), kv_positions.long()
+    ok = kp[None, :] <= qp[:, None]
+    if window is not None:
+        ok &= kp[None, :] > qp[:, None] - window
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf).mul_(scale).masked_fill_(~ok, -torch.inf)
+    p = torch.softmax(s, dim=-1).nan_to_num_(0.0)
+    del s
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, do)
+    ds = torch.einsum("bqhgd,bkhd->bhgqk", do, vf)
+    if not drop_delta:
+        ds.sub_((p * ds).sum(dim=-1, keepdim=True))
+    ds.mul_(p).mul_(scale)
+    del p
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(b, sq, hq, d)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
+    return dq, dk, dv
+
+
+def trainable_controls(q, k, v, dout, pos, window, want, chunks) -> dict:
+    """(dq, dk, dv) of three faults a wrong K4b could have: delta dropped;
+    the diagonal excluded from every row's mask (the chunked vjp with each
+    key one position later); dK and dV from the first query head of each
+    group only (the chunked vjp with the other heads' dout zeroed; dq the
+    plain version's)."""
+    import torch
+
+    from repro_torch.models.attention import chunked_vjp
+
+    qc, kc = chunks
+    g = q.shape[2] // k.shape[2]
+    first = dout.clone()
+    first.view(*dout.shape[:2], k.shape[2], g, dout.shape[3])[:, :, :, 1:] = 0
+    _, dk1, dv1 = chunked_vjp(q, k, v, first, q_positions=pos, kv_positions=pos, window=window,
+                              q_chunk=qc, kv_chunk=kc)
+    return {
+        "no_delta": tuple(t.to(q.dtype) for t in dense_grads(
+            q, k, v, dout, pos, pos, window, torch.float32, drop_delta=True)),
+        "no_diagonal": chunked_vjp(q, k, v, dout, q_positions=pos, kv_positions=pos + 1,
+                                   window=window, q_chunk=qc, kv_chunk=kc),
+        "one_head_per_group": (want[0], dk1, dv1),
+    }
+
+
 def phase_train_attention(smi: str) -> dict:
     """``flash_attention_trainable`` at llama's attention shape in a train
-    step (B=1, S=4,096, 24/8 heads, D=128), bf16 and f32: its forward within
-    K4's limits against the plain version; dq, dk, dv bitwise equal to the
-    vjp of ``_chunked_gqa`` on the same grouped q, k, v at the same chunks;
-    f32 gradients within TRAINABLE_GRAD_TOL of dense autodiff; the pallas
-    impl refusing grad-requiring inputs; then K4's forward, the chunked
-    backward, the chunked and trainable forward+backward and SDPA's
-    forward+backward timed."""
+    step (B=1, S=4,096, 24/8 heads, D=128), bf16 and f32: K4 once and K4b
+    once; the forward within K4's limits against the plain version; K4's
+    log-sum-exp against the plain one; dq, dk, dv within TRAINABLE_BWD_TOL
+    of K4b's plain version (the vjp of ``_chunked_gqa`` on the same grouped
+    q, k, v at the same chunks) and three controls outside them; f32
+    gradients within TRAINABLE_GRAD_TOL of dense autodiff; the pallas impl
+    refusing grad-requiring inputs; then K4's forward, K4b alone and its
+    plain version, the chunked backward, the chunked and trainable
+    forward+backward and SDPA's backward and forward+backward timed."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_trainable
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.models.attention import _chunked_gqa, gqa_attention
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd, flash_attention_trainable,
+    )
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_lse_ref, flash_attention_ref,
+    )
+    from repro_torch.models.attention import _chunked_gqa, chunked_vjp, gqa_attention
 
     b, s, hq, hkv, d = TRAIN_ATTN
     qc, kc = TRAIN_CHUNKS
-    out_rec, launches = {}, 0
+    out_rec, launches, bwd_launches, bwd_errs = {}, 0, 0, {}
     for dtype in ("bfloat16", "float32"):
+        t0 = time.perf_counter()
         q, k, v, pos = _flash_inputs(b, s, hq, hkv, d, dtype, seed=11)
         g = torch.Generator(device=DEV).manual_seed(12)
         dout = torch.randn(q.shape, generator=g, device=DEV).to(q.dtype)  # O(1) cotangents
@@ -3100,23 +3234,44 @@ def phase_train_attention(smi: str) -> dict:
             return _chunked_gqa(qq, kk, vv, q_positions=pos, kv_positions=pos, kv_valid=None,
                                 window=None, q_chunk=qc, kv_chunk=kc)
 
-        # The driven run: K4 once in the forward, the chunked vjp backward.
+        def plain_bwd():
+            return chunked_vjp(q, k, v, dout, q_positions=pos, kv_positions=pos, window=None,
+                               q_chunk=qc, kv_chunk=kc)
+
+        # The driven run: K4 once in the forward, K4b once in the backward.
         qq, kk, vv = leaves()
         _zero_counts()
         out = trainable(qq, kk, vv)
         got = torch.autograd.grad(out, (qq, kk, vv), dout)
         torch.cuda.synchronize()
         counts = _counts()
-        if counts != {"k1": 0, "k2": 0, "k3": 0, "k4": 1}:
+        if counts != {"k1": 0, "k2": 0, "k3": 0, "k4": 1, "k4_bwd": 1}:
             raise AssertionError(f"trainable route {dtype}: launches {counts}")
         launches += counts["k4"]
+        bwd_launches += counts["k4_bwd"]
         want = flash_attention_ref(q, k, v, pos, pos).float()
         fwd = flash_errors(out.detach().float(), want, dtype)
         del want
-        qq2, kk2, vv2 = leaves()
-        ref = torch.autograd.grad(chunked(qq2, kk2, vv2), (qq2, kk2, vv2), dout)
-        bitwise = all(torch.equal(a, c) for a, c in zip(got, ref))
-        del ref
+        # K4's log-sum-exp (the forward's second output) against the plain one.
+        out_l, lse = fa_ops._kernel_forward(q, k, v, pos, pos, None, with_lse=True)
+        lse_ref = flash_attention_lse_ref(q, k, pos, pos)
+        lse_err = (lse - lse_ref).abs().max().item()
+        out_bitwise = torch.equal(out_l, flash_attention(q, k, v, q_positions=pos,
+                                                         kv_positions=pos))
+        del lse_ref
+        ref = plain_bwd()
+        bwd = grad_errors(got, ref, dtype)
+        controls = {name: grad_errors(c, ref, dtype) for name, c in
+                    trainable_controls(q, k, v, dout, pos, None, ref, TRAIN_CHUNKS).items()}
+        bwd_errs[dtype] = bwd["max_abs_err"]
+        # Both against the exact gradient of the same inputs (a reading).
+        truth = dense_grads(q, k, v, dout, pos, pos, None, torch.float64)
+        vs_truth = {name: {key: e[key] for key in ("rel_l2", "max_rel_err")}
+                    for name, e in (("k4b", grad_errors(got, truth, dtype)),
+                                    ("chunked_vjp", grad_errors(ref, truth, dtype)))}
+        del ref, truth
+        torch.cuda.synchronize()
+        check_s = time.perf_counter() - t0
         dense = {}
         if dtype == "float32":
             qq3, kk3, vv3 = leaves()
@@ -3137,11 +3292,17 @@ def phase_train_attention(smi: str) -> dict:
             refused = "flash_attention_trainable" in str(e)
         log("train.k4", dtype=dtype, shape=f"B{b}_S{s}_H{hq}/{hkv}_D{d}", launches=counts,
             forward=fwd, forward_tol=f"rtol=atol={FLASH_TOL[dtype]}, row {FLASH_ROW_TOL[dtype]}",
-            grads_bitwise_vs_chunked_vjp=bitwise, chunks=TRAIN_CHUNKS,
-            vs_dense_autodiff=dense or "bf16: not held (f32 only)",
+            lse_max_abs_err=lse_err, no_grad_output_bitwise_with_lse=out_bitwise,
+            grads_vs_chunked_vjp=bwd, grads_tol=TRAINABLE_BWD_TOL[dtype], controls=controls,
+            vs_f64_truth=vs_truth,
+            chunks=TRAIN_CHUNKS, vs_dense_autodiff=dense or "bf16: not held (f32 only)",
             dense_tol=TRAINABLE_GRAD_TOL, pallas_under_grad_raises=refused, card=smi)
         bad = [f"forward {fwd}"] if fwd["outside"] or fwd["rows_outside"] else []
-        bad += [] if bitwise else ["gradients differ from the chunked vjp"]
+        bad += [] if lse_err <= LSE_TOL else [f"lse off the plain one by {lse_err}"]
+        bad += [] if out_bitwise else ["the output with lse differs from the no-grad one"]
+        bad += [f"grads vs chunked vjp {bwd}"] if bwd["outside"] or bwd["rel_l2_outside"] else []
+        bad += [f"the {n} control passes" for n, c in controls.items()
+                if not (c["outside"] or c["rel_l2_outside"])]
         bad += [f"{n} vs dense {e}" for n, e in dense.items() if e["outside"]]
         bad += [] if refused else ["gqa_attention(impl='pallas') did not refuse"]
         if bad:
@@ -3149,9 +3310,13 @@ def phase_train_attention(smi: str) -> dict:
         del out, got
 
         # Times (CUDA events, medians).
+        t0 = time.perf_counter()
         qq, kk, vv = leaves()
         n = 10
         k4_ms = time_ms(lambda: flash_attention(q, k, v, q_positions=pos, kv_positions=pos), n=n)
+        k4b_ms = time_ms(lambda: flash_attention_bwd(q, k, v, out_l, dout, lse, q_positions=pos,
+                                                     kv_positions=pos), n=n)
+        k4b_plain_ms = time_ms(plain_bwd, n=n)
         kept = chunked(qq, kk, vv)
         bwd_ms = time_ms(lambda: torch.autograd.grad(kept, (qq, kk, vv), dout,
                                                      retain_graph=True), n=n)
@@ -3165,18 +3330,46 @@ def phase_train_attention(smi: str) -> dict:
         sdpa_ms = time_ms(lambda: torch.autograd.grad(
             F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
             (qt, kt, vt), dt), n=n)
+        kept = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(kept, (qt, kt, vt), dt,
+                                                          retain_graph=True), n=n)
+        del kept
         pairs = flash_pairs(pos, pos, None)
         fwd_bound, fwd_by = flash_bound_ms(q, k, pairs)
         fb_bound, fb_by = train_attention_bound_ms(q, k, pairs)
-        rec = dict(k4_fwd_ms=k4_ms, chunked_bwd_ms=bwd_ms, chunked_fwd_bwd_ms=chunked_ms,
+        k4b_bound, k4b_by = k4b_bound_ms(q, k, pairs)
+        rec = dict(k4_fwd_ms=k4_ms, k4b_ms=k4b_ms, k4b_plain_ms_chunked_vjp=k4b_plain_ms,
+                   chunked_bwd_ms=bwd_ms, chunked_fwd_bwd_ms=chunked_ms,
                    trainable_fwd_bwd_ms=trainable_ms, library_fwd_bwd_ms_sdpa=sdpa_ms,
-                   fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by, fwd_bwd_bound_ms=fb_bound,
-                   fwd_bwd_bound_by=fb_by)
-        log("train.k4.time", dtype=dtype, **rec, card=smi)
+                   library_bwd_ms_sdpa=sdpa_bwd_ms, fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,
+                   fwd_bwd_bound_ms=fb_bound, fwd_bwd_bound_by=fb_by, k4b_bound_ms=k4b_bound,
+                   k4b_bound_by=k4b_by, k4b_roofline_share=k4b_bound / k4b_ms,
+                   k4b_vs_sdpa_bwd=k4b_ms / sdpa_bwd_ms)
+        log("train.k4.time", dtype=dtype, **rec, check_s=check_s,
+            time_s=time.perf_counter() - t0, card=smi)
         out_rec[dtype] = rec
-        del q, k, v, dout, qq, kk, vv, qt, kt, vt, dt
+        del q, k, v, dout, qq, kk, vv, qt, kt, vt, dt, out_l, lse
         torch.cuda.empty_cache()
-    return {"launches": launches, "trainable": out_rec}
+    main = out_rec["bfloat16"]
+    k4b = {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/ops.py:92",
+        "launches": bwd_launches,
+        "max_abs_err": bwd_errs["bfloat16"],
+        "ms": main["k4b_ms"],
+        "plain_ms": main["k4b_plain_ms_chunked_vjp"],
+        "bound_ms": main["k4b_bound_ms"],
+        "bound_by": main["k4b_bound_by"],
+        "library_ms": main["library_bwd_ms_sdpa"],
+        "f32": dict(ms=out_rec["float32"]["k4b_ms"], max_abs_err=bwd_errs["float32"],
+                    plain_ms=out_rec["float32"]["k4b_plain_ms_chunked_vjp"],
+                    bound_ms=out_rec["float32"]["k4b_bound_ms"],
+                    library_ms=out_rec["float32"]["library_bwd_ms_sdpa"]),
+    }
+    return {"launches": launches, "bwd_launches": bwd_launches, "trainable": out_rec,
+            "k4b": k4b}
 
 
 def phase_train_golden(smi: str) -> None:
@@ -3280,8 +3473,9 @@ def _zero_counts() -> None:
 
 
 def _counts() -> dict:
-    k1, k2, k3, k4 = _kernel_counters()
-    return {"k1": k1.launches, "k2": k2.launches, "k3": k3.launches, "k4": k4.launches}
+    k1, k2, k3, k4, k4_bwd = _kernel_counters()
+    return {"k1": k1.launches, "k2": k2.launches, "k3": k3.launches, "k4": k4.launches,
+            "k4_bwd": k4_bwd.launches}
 
 
 def _bench_record(phase: str, args, report: dict, launches: dict, seconds: float) -> None:
@@ -3525,7 +3719,7 @@ def phase_examples() -> dict:
     return {k: sum(v[k] for v in by_example.values()) for k in ("k1", "k2", "k3", "k4")}
 
 
-# -- Path 12: the GNN and recsys families at full width (no kernel of K1-K4:
+# -- Path 12: the GNN and recsys families at full width (no kernel of K1-K4b:
 # gathers, index_add_ and GEMMs) ---------------------------------------------
 
 GNN_STEPS = 3
@@ -4125,8 +4319,8 @@ def phase_gnn_cli(smi: str) -> None:
 
 
 def path_gnn(mesh, smi: str) -> dict:
-    """Path 12: every cell above, with the four kernels' counts set to 0
-    before and read after (no kernel of K1-K4 lies on this path)."""
+    """Path 12: every cell above, with the five kernels' counts set to 0
+    before and read after (no kernel of K1-K4b lies on this path)."""
     import torch
 
     t0 = time.perf_counter()
@@ -4145,7 +4339,7 @@ def path_gnn(mesh, smi: str) -> dict:
     phase_gnn_cli(smi)
     counts = _counts()
     if any(counts.values()):
-        raise AssertionError(f"path 12 launched a kernel of K1-K4: {counts}")
+        raise AssertionError(f"path 12 launched a kernel of K1-K4b: {counts}")
     log("gnn.path", seconds=round(time.perf_counter() - t0, 3), launches=counts, card=smi)
     return counts
 
@@ -4379,7 +4573,7 @@ def phase_launch_pipeline(mesh, smi: str) -> None:
 
 def path_launch(mesh, pred: dict, smi: str) -> dict:
     """Path 13: the dry-run, its accounting against the card, the pipeline;
-    K1-K4 launch 0 times here."""
+    K1-K4b launch 0 times here."""
     _zero_counts()
     t0 = time.perf_counter()
     phase_launch_dryrun(smi)
@@ -4534,15 +4728,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_moe_golden(smi)
     # Path 12: the GNN and recsys families at full width (no kernel of
-    # K1-K4; the tiled neighbor sum on the NCCL mesh).
+    # K1-K4b; the tiled neighbor sum on the NCCL mesh).
     gnn = path_gnn(mesh, smi)
-    # Path 13: the launch dry-run layer; no kernel of K1-K4.
+    # Path 13: the launch dry-run layer; no kernel of K1-K4b.
     launch = path_launch(mesh, launch_pred, smi)
     k4["launches_by_path"] = {"lm.prefill": k4["launches"], "moe.prefill": k4_moe["launches"],
                               "train.step": train["launches"],
                               "train.k4": k4_train["launches"], "gnn": gnn["k4"],
                               "launch": launch["k4"]}
     k4["trainable"] = k4_train["trainable"]
+    k4b = k4_train["k4b"]
+    k4b["launches_by_path"] = {"train.k4": k4_train["bwd_launches"],
+                               "train.step": train["bwd_launches"], "gnn": gnn["k4_bwd"],
+                               "launch": launch["k4_bwd"]}
     import torch.distributed as dist
 
     dist.destroy_process_group()
@@ -4556,9 +4754,9 @@ def main() -> int:
         kern["launches_by_path"]["launch"] = launch[key]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path", "moe_window",
-            "trainable")
+            "trainable", "f32")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern}
-                                  for kern in (k1, k2, k3, k4)]}), flush=True)
+                                  for kern in (k1, k2, k3, k4, k4b)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

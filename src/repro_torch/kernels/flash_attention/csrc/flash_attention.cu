@@ -69,16 +69,21 @@
 //   l sums p in f32.
 // * f32 keeps the first design: scalar FMA, 4 threads per q row, 32 x 32
 //   tiles staged by every thread, each warp classifying its tiles.
+// * On request (the trainable route's forward) each row's log-sum-exp, f32
+//   [B, Hq, Sq], in natural log as the reference's _chunked_gqa keeps it:
+//   (m + log2 l) * ln 2 from the base-2 running max and sum (f32: m + log
+//   l); +inf for a row with no allowed key.  The backward K4b
+//   (flash_attention_bwd.cu) reads it.  Each kernel is a template on it, so
+//   the instantiation the no-grad route launches is the code it was, and
+//   its output is bitwise the same.
+//
+// The mask rules, the tile plan and the TMA / mbarrier / wgmma blocks are in
+// kernels/csrc/flash_common.cuh, shared with the backward.
 //
 // The kernels neither allocate nor synchronize the host.  A wait on a
 // barrier that outlasts ~10 s traps (a launch error) instead of hanging.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <climits>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
@@ -87,6 +92,7 @@ struct Params {
   const void* k;
   const void* v;
   void* out;
+  float* lse;  // nullptr, or f32 [B, Hq, Sq]
   const int32_t* qpos;
   const int32_t* kpos;
   int B, Sq, Sk, Hq, Hkv, D;
@@ -100,111 +106,11 @@ struct Params {
 
 constexpr int kThreads = 128;
 
-__device__ __forceinline__ int warp_min(int x) {
-  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ int warp_max(int x) {
-  for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// The q block's min and max position over its real rows [q0, q0 + rows).
-__device__ __forceinline__ void block_q_bounds(const Params& p, int q0, int rows,
-                                               int* s_bounds, int& qmin, int& qmax) {
-  if (threadIdx.x == 0) {
-    s_bounds[0] = INT_MAX;
-    s_bounds[1] = INT_MIN;
-  }
-  __syncthreads();
-  for (int r = threadIdx.x; r < rows; r += kThreads) {
-    const int pos = p.qpos[q0 + r];
-    atomicMin(&s_bounds[0], pos);
-    atomicMax(&s_bounds[1], pos);
-  }
-  __syncthreads();
-  qmin = s_bounds[0];
-  qmax = s_bounds[1];
-}
-
-// The kind of a kv tile whose real keys' positions lie in [kmin, kmax],
-// against a q block whose real rows' positions lie in [qmin, qmax].  0:
-// every pair masked (skip); 1: some pairs masked (mask per element); 2:
-// every pair allowed and no ragged edge (`whole`: the tile has no key past
-// Sk).  ref.py::tile_plan_ref is its plain version.
-__device__ __forceinline__ int tile_kind(int kmin, int kmax, bool whole, int qmin, int qmax,
-                                         int window) {
-  const long long w = window;
-  if (kmin > qmax) return 0;  // causal: every key after every query
-  if (w > 0 && (long long)kmax <= (long long)qmin - w) return 0;  // all too old
-  const bool full = kmax <= qmin && (w <= 0 || (long long)kmin > (long long)qmax - w) && whole;
-  return full ? 2 : 1;
-}
-
-// Classifies kv tile [k0, k0 + tile) against the q block, from the tile's own
-// positions (every warp computes the same answer).
-__device__ __forceinline__ int classify_tile(const Params& p, int k0, int tile, int qmin,
-                                             int qmax) {
-  const int lane = threadIdx.x & 31;
-  int lo = INT_MAX, hi = INT_MIN;
-  for (int i = lane; i < tile; i += 32) {
-    if (k0 + i < p.Sk) {
-      const int pos = p.kpos[k0 + i];
-      lo = min(lo, pos);
-      hi = max(hi, pos);
-    }
-  }
-  return tile_kind(warp_min(lo), warp_max(hi), k0 + tile <= p.Sk, qmin, qmax, p.window);
-}
-
-__device__ __forceinline__ bool allowed(int qp, int kp, int window) {
-  return kp <= qp && (window <= 0 || (long long)kp > (long long)qp - window);
-}
-
-// ------------------------------ the plan --------------------------------
-
-constexpr int kBQ = 128;   // q rows per bf16 CTA (64 per consumer warpgroup)
-constexpr int kBKV = 128;  // keys per bf16 kv tile
-static_assert(kBQ == kBKV, "flash_plan reduces one q block or kv tile per 128-thread block");
-
-// Block i < n_kt: kv tile i; block n_kt + j: q block j.  Writes (min, max)
-// of the block's real positions to bounds[2i], bounds[2i + 1]: the kv
-// tiles' first, then the q blocks'.  ref.py::tile_bounds_ref is its plain
-// version.
-__global__ void __launch_bounds__(kBKV)
-flash_plan(const int32_t* __restrict__ qpos, const int32_t* __restrict__ kpos, int Sq, int Sk,
-           int n_kt, int32_t* __restrict__ bounds) {
-  __shared__ int s_lo[kBKV / 32], s_hi[kBKV / 32];
-  const bool kv = (int)blockIdx.x < n_kt;
-  const int i = (kv ? (int)blockIdx.x : (int)blockIdx.x - n_kt) * kBKV + (int)threadIdx.x;
-  const int n = kv ? Sk : Sq;
-  int lo = INT_MAX, hi = INT_MIN;
-  if (i < n) lo = hi = (kv ? kpos : qpos)[i];
-  lo = warp_min(lo);
-  hi = warp_max(hi);
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    s_lo[warp] = lo;
-    s_hi[warp] = hi;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < kBKV / 32; ++w) {
-      lo = min(lo, s_lo[w]);
-      hi = max(hi, s_hi[w]);
-    }
-    bounds[2 * blockIdx.x] = lo;
-    bounds[2 * blockIdx.x + 1] = hi;
-  }
-}
-
 // ------------------------------- bf16 ----------------------------------
 
 constexpr int kStages = 2;          // kv ring depth
 constexpr int kBf16Threads = 384;   // producer + two consumer warpgroups
 constexpr int kConsumerWarps = 8;
-constexpr int kBoxCols = 64;        // one 128-byte swizzle atom of bf16
 constexpr int kBoxBytes = 128 * 128;  // a 128-row box of 64 columns
 
 // Dynamic shared memory of one CTA, from a 1024-byte aligned base (the
@@ -221,6 +127,7 @@ struct Bf16Smem {
 
 struct Bf16Params {
   void* out;
+  float* lse;  // written when the kernel's LSE is true
   const int32_t* qpos;
   const int32_t* kpos;
   const int32_t* kv_bounds;  // flash_plan's output: (min, max) per kv tile
@@ -231,131 +138,10 @@ struct Bf16Params {
   float scale_log2;  // the reference's scale times log2(e)
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Waits for the phase of `bar` with this parity to complete.  Traps after
-// ~10 s (2e10 cycles): a lost arrival then fails the launch, not the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  long long start = -1;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    const long long now = clock64();
-    if (start < 0) start = now;
-    if (now - start > 20000000000LL) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// A wgmma shared-memory matrix descriptor with the 128-byte swizzle: start
-// address, leading and stride byte offsets (16-byte units), layout type 1.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of wgmma's registers across
-// the asynchronous instructions (CUTLASS's warpgroup_fence_operand).
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-#define WG_F8(d, i)                                                                     \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),           \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_F32(d) WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16), WG_F8(d, 24)
-#define WG_F64(d) WG_F32(d), WG_F8(d, 32), WG_F8(d, 40), WG_F8(d, 48), WG_F8(d, 56)
-#define WG_R32                                                                            \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define WG_R64                                                                            \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
-  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "  \
-  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-
-// d (+)= A B^T over 64 rows x 128 columns x 16: A and B both K-major in
-// shared memory.  accumulate = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_R64
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : WG_F64(d)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d += A B over 64 rows x N columns x 16: A from registers (the m64k16
-// fragment), B MN-major in shared memory (transpose flag set).
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_R64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : WG_F64(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_F32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo, the low half
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // DP: D padded to 64 or 128 columns (TMA's zero fill supplies the rest).
-template <int DP>
+// LSE: also write each row's log-sum-exp (the instantiation without it is
+// the no-grad route's).
+template <int DP, bool LSE>
 __global__ void __launch_bounds__(kBf16Threads, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, const Bf16Params p) {
@@ -559,6 +345,11 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+    if (LSE && t4 == 0) {  // natural log: (m + log2 l) ln 2; +inf for a row with no key
+      float* lg = p.lse + ((long long)b * p.Hq + h) * p.Sq;
+      if (r0 < p.Sq) lg[r0] = l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : INFINITY;
+      if (r1 < p.Sq) lg[r1] = l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : INFINITY;
+    }
     __nv_bfloat16* og = (__nv_bfloat16*)p.out + (long long)b * p.o_sb + (long long)h * p.o_sh;
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j) {
@@ -578,7 +369,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
 
 // DP: D rounded up to a multiple of 16.  Thread (row, c) of the 4 threads of
 // a q row holds the columns d = c + 4*i.
-template <int DP>
+template <int DP, bool LSE>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const Params p) {
   constexpr int BQ = 32, BKV = 32, NC = DP / 4;
@@ -600,7 +391,7 @@ flash_fwd_f32(const Params p) {
   const float* vg = (const float*)p.v + (long long)b * p.v_sb + (long long)hk * p.v_sh;
 
   int qmin, qmax;
-  block_q_bounds(p, q0, min(BQ, p.Sq - q0), s_bounds, qmin, qmax);
+  block_bounds(p.qpos, q0, min(BQ, p.Sq - q0), s_bounds, qmin, qmax);
   const int qp = r < p.Sq ? p.qpos[r] : INT_MIN;
 
   float qv[NC], acc[NC];
@@ -615,7 +406,7 @@ flash_fwd_f32(const Params p) {
   const int n_kt = (p.Sk + BKV - 1) / BKV;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BKV;
-    const int kind = classify_tile(p, k0, BKV, qmin, qmax);
+    const int kind = classify_tile(p.kpos, k0, BKV, p.Sk, qmin, qmax, p.window);
     if (kind == 0) continue;
     for (int u = tid; u < BKV * DP; u += kThreads) {
       const int key = u / DP, d = u % DP;
@@ -657,6 +448,8 @@ flash_fwd_f32(const Params p) {
     __syncthreads();
   }
 
+  if (LSE && c == 0 && r < p.Sq)  // natural log; +inf for a row with no key
+    p.lse[((long long)b * p.Hq + h) * p.Sq + r] = l > 0.f ? m + logf(l) : INFINITY;
   if (r < p.Sq) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
     float* og = (float*)p.out + (long long)b * p.o_sb + (long long)h * p.o_sh +
@@ -674,73 +467,21 @@ template <int DP>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   const long long ctas = (long long)((p.Sq + 31) / 32) * p.B * p.Hq;
   if (ctas > 0x7fffffffLL) return cudaErrorInvalidConfiguration;  // gridDim.x's limit
-  flash_fwd_f32<DP><<<(unsigned)ctas, kThreads, 0, stream>>>(p);
+  if (p.lse != nullptr)
+    flash_fwd_f32<DP, true><<<(unsigned)ctas, kThreads, 0, stream>>>(p);
+  else
+    flash_fwd_f32<DP, false><<<(unsigned)ctas, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
 // ---------------------------- bf16 host side -----------------------------
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
-// library links against nothing but the CUDA runtime.
-EncodeTiledFn encoder() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)ptr;
-  }
-  return fn;
-}
-
-// Error codes of the entry points: a cudaError_t, or kTensorMapError plus
-// the CUresult of a tensor map that could not be encoded.
-constexpr int kTensorMapError = 1000;
-
-// The tensor map of a [B, S, H, D] bf16 tensor with element strides (sb, ss,
-// sh) and a contiguous last dim: dims (D, H, S, B), boxes of 64 columns x 1
-// head x 128 rows x 1 batch, 128-byte swizzle, zeros outside the tensor.
-int encode(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, long long sb,
-           long long ss, long long sh) {
-  const EncodeTiledFn fn = encoder();
-  if (fn == nullptr) return kTensorMapError + (int)CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {kBoxCols, 1, kBKV, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kTensorMapError + (int)r;
-}
-
-int n_tiles(int n) { return (n + kBKV - 1) / kBKV; }
-
-int launch_plan(const int32_t* qpos, const int32_t* kpos, int Sq, int Sk, int32_t* bounds,
-                cudaStream_t stream) {
-  flash_plan<<<n_tiles(Sk) + n_tiles(Sq), kBKV, 0, stream>>>(qpos, kpos, Sq, Sk, n_tiles(Sk),
-                                                              bounds);
-  return (int)cudaGetLastError();
-}
-
 template <int DP>
 int launch_bf16(const Params& p, int32_t* bounds, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  int err = encode(&tq, p.q, p.B, p.Sq, p.Hq, p.D, p.q_sb, p.q_ss, p.q_sh);
-  if (!err) err = encode(&tk, p.k, p.B, p.Sk, p.Hkv, p.D, p.k_sb, p.k_ss, p.k_sh);
-  if (!err) err = encode(&tv, p.v, p.B, p.Sk, p.Hkv, p.D, p.v_sb, p.v_ss, p.v_sh);
+  int err = encode(&tq, p.q, p.B, p.Sq, p.Hq, p.D, p.q_sb, p.q_ss, p.q_sh, kBQ);
+  if (!err) err = encode(&tk, p.k, p.B, p.Sk, p.Hkv, p.D, p.k_sb, p.k_ss, p.k_sh, kBKV);
+  if (!err) err = encode(&tv, p.v, p.B, p.Sk, p.Hkv, p.D, p.v_sb, p.v_ss, p.v_sh, kBKV);
   if (err) return err;
   const long long ctas = (long long)n_tiles(p.Sq) * p.B * p.Hq;
   if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;  // gridDim.x's limit
@@ -748,6 +489,7 @@ int launch_bf16(const Params& p, int32_t* bounds, cudaStream_t stream) {
   if (err) return err;
   Bf16Params bp;
   bp.out = p.out;
+  bp.lse = p.lse;
   bp.qpos = p.qpos;
   bp.kpos = p.kpos;
   bp.kv_bounds = bounds;
@@ -762,12 +504,13 @@ int launch_bf16(const Params& p, int32_t* bounds, cudaStream_t stream) {
   bp.o_ss = p.o_ss;
   bp.o_sh = p.o_sh;
   bp.window = p.window;
-  bp.scale_log2 = p.scale * 1.4426950408889634f;
+  bp.scale_log2 = p.scale * kLog2e;
   const int smem = Bf16Smem<DP>::kBytes;
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = p.lse != nullptr ? flash_fwd_bf16<DP, true> : flash_fwd_bf16<DP, false>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  flash_fwd_bf16<DP><<<(unsigned)ctas, kBf16Threads, smem, stream>>>(tq, tk, tv, bp);
+  kernel<<<(unsigned)ctas, kBf16Threads, smem, stream>>>(tq, tk, tv, bp);
   return (int)cudaGetLastError();
 }
 
@@ -775,6 +518,7 @@ int launch_bf16(const Params& p, int32_t* bounds, cudaStream_t stream) {
 
 // q, out: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D], each with its last dim
 // contiguous and the given element strides; qpos int32[Sq], kpos int32[Sk].
+// lse: nullptr, or f32 [B, Hq, Sq] for each row's log-sum-exp (natural log).
 // dtype 0: float32, 1: bfloat16.  window <= 0: none.  scale multiplies
 // q . k (the reference's 1/sqrt(D), rounded to f32).  bounds (bf16 only):
 // int32 scratch of 2 * (ceil(Sk / 128) + ceil(Sq / 128)) values.  The
@@ -783,7 +527,7 @@ int launch_bf16(const Params& p, int32_t* bounds, cudaStream_t stream) {
 // then the attention) and returns 0, a cudaError_t, or 1000 plus the
 // CUresult of a tensor map the driver refused.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* out, const void* qpos,
+    const void* q, const void* k, const void* v, void* out, void* lse, const void* qpos,
     const void* kpos, void* bounds, int B, int Sq, int Sk, int Hq, int Hkv, int D,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh, long long o_sb,
@@ -793,6 +537,7 @@ extern "C" int flash_attention_fwd(
   p.k = k;
   p.v = v;
   p.out = out;
+  p.lse = (float*)lse;
   p.qpos = (const int32_t*)qpos;
   p.kpos = (const int32_t*)kpos;
   p.B = B;

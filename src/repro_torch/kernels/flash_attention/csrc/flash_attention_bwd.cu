@@ -1,0 +1,948 @@
+// K4b: the backward of K4's trainable route (causal, optionally
+// sliding-window GQA flash attention), Hopper (sm_90a).
+//
+// Replaces no TPU kernel: the reference's backward of flash_attention_
+// trainable (src/repro/kernels/flash_attention/ops.py:92-103) is XLA's vjp
+// of _chunked_gqa, re-run from q, k, v at 512 x 1024 chunks, and the port's
+// stand-in for it (models/attention.py::chunked_vjp, torch ops) took 50 of
+// the route's 51 ms at llama's training shape.  It computes the same
+// function (dq, dk, dv) of (q, k, v, dout, positions, window), from what
+// K4's forward keeps: its output and each row's log-sum-exp (natural log,
+// +inf for a row with no allowed key).  chunked_vjp is its plain version.
+//
+//   p = exp(s - lse), s = q . k * scale (0 where masked); delta = rowsum(
+//   dout * out); dv = p^T dout; dp = dout v^T; ds = p * (dp - delta);
+//   dq = scale * ds k; dk = scale * ds^T q, summed over the Hq / Hkv query
+//   heads of each kv head.
+//
+// Bound: operations.  10 * D FLOPs per allowed pair and query head (the
+// products s, dp, dv, dq and dk, 2 * D each); at llama3.2-3b's training
+// shape (B=1, S=4096, 24/8 heads, D=128) 2.58e11 FLOPs, 0.261 ms at the
+// 989 TFLOP/s bf16 peak; the bytes (q, k, v, out, dout read, dq, dk, dv
+// written: 134 MB) 0.040 ms.
+//
+// Design (bf16), five launches on the caller's stream:
+// * flash_plan (the forward's) bounds each 128-key tile's and 128-row q
+//   block's positions, so a kv tile against a q block is skipped, taken
+//   whole (no per-element mask) or masked per element, exactly as in K4
+//   and without assuming pos == arange.
+// * flash_bwd_delta: delta = rowsum(dout * out) in f32, [B, Hq, Sq], a warp
+//   a row.
+// * flash_bwd_dkdv_bf16, twice: the dV pass, then the dK pass.  ptxas
+//   holds every thread of a 384-thread CTA to 168 registers, whatever
+//   setmaxnreg asks; a one-pass build that kept both 64 x D f32
+//   accumulators (128 registers at D=128) beside S and dP spilled and ran
+//   slower than the two passes do (PERF.md).  One CTA per (128-key tile, b * kv head), kv tile 0 first (under a
+//   causal mask it has the most q blocks).  384 threads: a producer warp
+//   and two consumer warpgroups of 64 keys each.  The producer loads the K
+//   (and, for dK, V) tile once by TMA, then walks the group's g query heads
+//   and, for each q block the plan keeps, its 64-row halves through a
+//   2-deep ring: Q and dO by TMA, the rows' lse (times log2 e) and delta by
+//   the warp's plain loads into the same stage (rows past Sq get lse =
+//   +inf, delta = 0, so p = 0 there and no inf - inf reaches a product).
+//   Each consumer step: S^T = K Q^T (and for dK dP^T = V dO^T) by wgmma
+//   m64n64k16 (K, V, Q, dO all K-major, 128-byte swizzle); P^T =
+//   exp2(S^T * scale * log2 e - lse2), 0 where masked, and for dK dS^T =
+//   P^T * (dP^T - delta), with lse and delta per column of the
+//   accumulators, read from the stage; then dV += P^T dO, or dK += dS^T Q,
+//   by wgmma with P^T or dS^T rounded to bf16 as the A operand from
+//   registers and dO or Q read MN-major through the transpose flag (as K4
+//   reads V): nothing is transposed or copied.  The accumulator stays in
+//   f32 registers across every head of the group and is written once (dK
+//   times the scale): the GQA sum needs no atomics.  The passes recompute S
+//   (2 * D FLOPs a pair beyond the bound).
+// * flash_bwd_dq_bf16: one CTA per (128-row q block, b * q head), heaviest
+//   first, K4's producer and ring over the plan's kv tiles; each consumer
+//   (64 rows) takes a tile as two 64-key halves: S = Q K^T, dP = dO V^T,
+//   dS = P * (dP - delta) with lse and delta per row in registers, dQ += dS
+//   K (K read MN-major).  It recomputes S and dP (4 * D FLOPs a pair beyond
+//   the bound) and is deterministic, as the whole backward is.  The alternative, FA3's f32 atomicAdd
+//   of dQ from the dK/dV kernel, does less work and varies in its last bits
+//   from run to run; it is not built (PERF.md).
+// * P and dS are rounded to bf16 for wgmma where chunked_vjp keeps them in
+//   f32, so bf16 is held to a tolerance, not bitwise (chip_smoke.py,
+//   TRAINABLE_BWD_TOL).
+// * f32: flash_bwd_delta, then two plain scalar-FMA kernels with K4's f32
+//   32 x 32 staging, 4 threads a row (no TF32): dK/dV one CTA per (32-key
+//   tile, b * kv head) over the group's q tiles, dQ one CTA per (32-row q
+//   block, b * q head) over the kv tiles, each tile classified as in K4.
+//
+// The kernels neither allocate nor synchronize the host.  A wait on a
+// barrier that outlasts ~10 s traps (a launch error) instead of hanging.
+
+#include "flash_common.cuh"
+
+namespace {
+
+struct BwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* out;
+  const void* dout;
+  const float* lse;  // [B, Hq, Sq], natural log
+  float* delta;      // [B, Hq, Sq], written by flash_bwd_delta
+  void* dq;
+  void* dk;
+  void* dv;
+  const int32_t* qpos;
+  const int32_t* kpos;
+  const int32_t* kv_bounds;  // bf16: flash_plan's output, (min, max) per kv tile
+  const int32_t* q_bounds;   // then per q block
+  int B, Sq, Sk, Hq, Hkv, D;
+  long long q_sb, q_ss, q_sh;  // strides in elements: batch, seq, head
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  long long o_sb, o_ss, o_sh;
+  long long do_sb, do_ss, do_sh;
+  long long dq_sb, dq_ss, dq_sh;
+  long long dk_sb, dk_ss, dk_sh;
+  long long dv_sb, dv_ss, dv_sh;
+  int window;  // <= 0: no window
+  float scale;
+};
+
+// Offset of row (b, h) of a [B, Hq, Sq] row array.
+__device__ __forceinline__ long long row_base(const BwdParams& p, int b, int h) {
+  return ((long long)b * p.Hq + h) * p.Sq;
+}
+
+// ---------------------------- delta pre-pass ----------------------------
+
+constexpr int kDeltaThreads = 128;  // a warp a row
+
+template <bool BF16>
+__device__ __forceinline__ float load(const void* base, long long i) {
+  if constexpr (BF16) {
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(base)[i]);
+  } else {
+    return static_cast<const float*>(base)[i];
+  }
+}
+
+template <bool BF16>
+__global__ void __launch_bounds__(kDeltaThreads)
+flash_bwd_delta(const BwdParams p) {
+  const long long row = (long long)blockIdx.x * (kDeltaThreads / 32) + (threadIdx.x >> 5);
+  if (row >= (long long)p.B * p.Sq * p.Hq) return;  // the whole warp
+  const int lane = threadIdx.x & 31;
+  const int h = (int)(row % p.Hq);
+  const int s = (int)((row / p.Hq) % p.Sq);
+  const int b = (int)(row / ((long long)p.Hq * p.Sq));
+  const long long o = (long long)b * p.o_sb + (long long)s * p.o_ss + (long long)h * p.o_sh;
+  const long long g = (long long)b * p.do_sb + (long long)s * p.do_ss + (long long)h * p.do_sh;
+  float acc = 0.f;
+  for (int d = lane; d < p.D; d += 32)
+    acc = fmaf(load<BF16>(p.out, o + d), load<BF16>(p.dout, g + d), acc);
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) p.delta[row_base(p, b, h) + s] = acc;
+}
+
+// -------------------------------- bf16 ----------------------------------
+
+// A producer warpgroup and two consumer warpgroups, as K4.  ptxas holds
+// every thread of a 384-thread CTA to 168 registers, setmaxnreg or not.
+constexpr int kBwdThreads = 384;
+constexpr int kBwdConsumerWarps = 8;
+constexpr int kBwdStages = 2;     // ring depth
+constexpr int kQStep = 64;        // q rows per dK/dV step
+constexpr int kBox128 = 128 * 128;  // bytes of a 128-row box of 64 bf16 columns
+constexpr int kBox64 = 64 * 128;    // of a 64-row box
+
+// dK/dV CTA's dynamic shared memory, from a 1024-byte aligned base: K's
+// DP/64 boxes of 128 rows, then V's; each stage: Q's DP/64 boxes of 64
+// rows, then dO's; each stage's lse2 and delta (64 floats each); the
+// barriers (kv_full, full[S], empty[S]) and info[S].
+template <int DP>
+struct DkdvSmem {
+  static constexpr int kKVBytes = kBKV * DP * 2;
+  static constexpr int kStepBytes = kQStep * DP * 2;
+  static constexpr int kStageOffset = 2 * kKVBytes;
+  static constexpr int kRowsOffset = kStageOffset + 2 * kBwdStages * kStepBytes;
+  static constexpr int kBarOffset = kRowsOffset + kBwdStages * 2 * kQStep * 4;
+  static constexpr int kBytes = kBarOffset + 8 * (1 + 2 * kBwdStages) + 4 * kBwdStages + 1024;
+};
+
+// dQ CTA's: Q's DP/64 boxes of 128 rows, then dO's; each stage: K's boxes,
+// then V's; the barriers (q_full, full[S], empty[S]) and info[S].
+template <int DP>
+struct DqSmem {
+  static constexpr int kQBytes = kBQ * DP * 2;
+  static constexpr int kTileBytes = kBKV * DP * 2;
+  static constexpr int kRingOffset = 2 * kQBytes;
+  static constexpr int kBarOffset = kRingOffset + 2 * kBwdStages * kTileBytes;
+  static constexpr int kBytes = kBarOffset + 8 * (1 + 2 * kBwdStages) + 4 * kBwdStages + 1024;
+};
+
+__device__ __forceinline__ void init_ring(uint32_t first, uint32_t full0, uint32_t empty0) {
+  if (threadIdx.x == 0) {
+    mbar_init(first, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kBwdConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// DP: D padded to 64 or 128 columns (TMA's zero fill supplies the rest).
+// DK: the dK pass (S, dP, dS, dK += dS^T Q); else the dV pass (S, P, dV +=
+// P^T dO), which needs no V and no delta.  Each pass holds one 64 x D f32
+// accumulator a consumer thread beside S (and dP): both in one pass would
+// not fit the 168 registers.
+template <int DP, bool DK>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                    const BwdParams p) {
+  using L = DkdvSmem<DP>;
+  constexpr int NB = DP / kBoxCols;  // boxes per row block
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  float* const rows = reinterpret_cast<float*>(gbase + L::kRowsOffset);
+  const uint32_t kv_full = base + L::kBarOffset;
+  const uint32_t full0 = kv_full + 8, empty0 = kv_full + 8 * (1 + kBwdStages);
+  volatile int* info =
+      reinterpret_cast<volatile int*>(gbase + L::kBarOffset + 8 * (1 + 2 * kBwdStages));
+
+  const int BH = p.B * p.Hkv;
+  const int kt = (int)(blockIdx.x / (unsigned)BH);
+  const int bh = (int)(blockIdx.x % (unsigned)BH);
+  const int b = bh / p.Hkv, hk = bh % p.Hkv;
+  const int g = p.Hq / p.Hkv;
+  const int k0 = kt * kBKV;
+  init_ring(kv_full, full0, empty0);
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: its first warp walks the q steps ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, (DK ? 2 : 1) * L::kKVBytes);
+#pragma unroll
+      for (int c = 0; c < NB; ++c) {
+        tma_load_4d(base + c * kBox128, &tk, kv_full, c * kBoxCols, hk, k0, b);
+        if (DK)
+          tma_load_4d(base + L::kKVBytes + c * kBox128, &tv, kv_full, c * kBoxCols, hk, k0, b);
+      }
+    }
+    const int kmin = p.kv_bounds[2 * kt], kmax = p.kv_bounds[2 * kt + 1];
+    const bool whole = k0 + kBKV <= p.Sk;
+    const int n_qb = (p.Sq + kBQ - 1) / kBQ;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int hl = 0; hl < g; ++hl) {
+      const int h = hk * g + hl;
+      const float* lse_h = p.lse + row_base(p, b, h);
+      const float* delta_h = p.delta + row_base(p, b, h);
+      for (int t0 = 0; t0 < n_qb; t0 += 32) {
+        const int qb = t0 + lane;
+        int kind = 0;
+        if (qb < n_qb)
+          kind = tile_kind(kmin, kmax, whole, p.q_bounds[2 * qb], p.q_bounds[2 * qb + 1],
+                           p.window);
+        uint32_t live = __ballot_sync(0xffffffffu, kind != 0);
+        const uint32_t full_mask = __ballot_sync(0xffffffffu, kind == 2);
+        while (live) {
+          const int i = __ffs(live) - 1;
+          live &= live - 1;
+          for (int half = 0; half < kBQ / kQStep; ++half) {
+            const int q0 = (t0 + i) * kBQ + half * kQStep;
+            if (q0 >= p.Sq) break;
+            if (lane == 0) mbar_wait(empty0 + 8 * stage, phase ^ 1);
+            __syncwarp();
+            float* lse_s = rows + stage * 2 * kQStep;
+            float* delta_s = lse_s + kQStep;
+            for (int r = lane; r < kQStep; r += 32) {
+              const bool in = q0 + r < p.Sq;
+              lse_s[r] = in ? lse_h[q0 + r] * kLog2e : INFINITY;
+              if (DK) delta_s[r] = in ? delta_h[q0 + r] : 0.f;
+            }
+            __threadfence_block();
+            __syncwarp();
+            if (lane == 0) {
+              const uint32_t full = full0 + 8 * stage;
+              const uint32_t q_dst = base + L::kStageOffset + stage * 2 * L::kStepBytes;
+              info[stage] = (q0 << 1) | ((full_mask >> i) & 1);
+              mbar_expect_tx(full, 2 * L::kStepBytes);
+#pragma unroll
+              for (int c = 0; c < NB; ++c) {
+                tma_load_4d(q_dst + c * kBox64, &tq, full, c * kBoxCols, h, q0, b);
+                tma_load_4d(q_dst + L::kStepBytes + c * kBox64, &tdo, full, c * kBoxCols, h,
+                            q0, b);
+              }
+            }
+            if (++stage == kBwdStages) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+    }
+    if (lane == 0) {  // the end marker
+      mbar_wait(empty0 + 8 * stage, phase ^ 1);
+      info[stage] = -1;
+      mbar_arrive(full0 + 8 * stage);
+    }
+  } else {
+    // ---- two consumer warpgroups, 64 keys each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = (threadIdx.x >> 7) - 1;
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int g8 = lane >> 2, t4 = lane & 3;
+    // This thread's keys: kr0 and kr0 + 8 (the accumulators' rows).
+    const int kr0 = k0 + 64 * cw + 16 * warp + g8, kr1 = kr0 + 8;
+    const int kp0 = kr0 < p.Sk ? p.kpos[kr0] : INT_MAX;
+    const int kp1 = kr1 < p.Sk ? p.kpos[kr1] : INT_MAX;
+    const float c = p.scale * kLog2e;
+
+    float acc[DP / 2];  // dK (before the scale) or dV
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    float s[kQStep / 2], dp[kQStep / 2];
+#pragma unroll
+    for (int i = 0; i < kQStep / 2; ++i) s[i] = dp[i] = 0.f;
+
+    // This warpgroup's 64 rows of K and V: 64 rows into each 128-row box.
+    const uint32_t k_addr = base + cw * 64 * 128;
+    const uint32_t v_addr = base + L::kKVBytes + cw * 64 * 128;
+    mbar_wait(kv_full, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (;;) {
+      mbar_wait(full0 + 8 * stage, phase);
+      const int tinfo = info[stage];
+      if (tinfo < 0) break;
+      const int q0 = tinfo >> 1;
+      const uint32_t q_addr = base + L::kStageOffset + stage * 2 * L::kStepBytes;
+      const uint32_t do_addr = q_addr + L::kStepBytes;
+      const float* lse_s = rows + stage * 2 * kQStep;
+      const float* delta_s = lse_s + kQStep;
+
+      // S^T = K Q^T (and dP^T = V dO^T): 16 columns of d a step, 4 a box.
+      reg_fence(s);
+      if (DK) reg_fence(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t a_off = (kk >> 2) * kBox128 + (kk & 3) * 32;
+        const uint32_t b_off = (kk >> 2) * kBox64 + (kk & 3) * 32;
+        wgmma_ss_n64(s, smem_desc(k_addr + a_off, 16, 1024), smem_desc(q_addr + b_off, 16, 1024),
+                     kk > 0);
+      }
+      if (DK) {
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const uint32_t a_off = (kk >> 2) * kBox128 + (kk & 3) * 32;
+          const uint32_t b_off = (kk >> 2) * kBox64 + (kk & 3) * 32;
+          wgmma_ss_n64(dp, smem_desc(v_addr + a_off, 16, 1024),
+                       smem_desc(do_addr + b_off, 16, 1024), kk > 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(s);
+      if (DK) reg_fence(dp);
+
+      // Element e of n8 chunk j: key kr0 (e < 2) or kr1, q row q0 + 8j +
+      // 2*t4 + (e & 1).  P^T, then (dK pass) dS^T, into s.
+      const bool masked = !(tinfo & 1);
+#pragma unroll
+      for (int j = 0; j < kQStep / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t4 + (e & 1);
+          float pv = exp2f(fmaf(s[4 * j + e], c, -lse_s[col]));
+          if (masked) {
+            const int qr = q0 + col;
+            const int qp = qr < p.Sq ? __ldg(p.qpos + qr) : INT_MIN;
+            if (!allowed(qp, e < 2 ? kp0 : kp1, p.window)) pv = 0.f;
+          }
+          s[4 * j + e] = DK ? pv * (dp[4 * j + e] - delta_s[col]) : pv;
+        }
+      }
+      uint32_t a[kQStep / 16][4];
+      to_a_fragments<kQStep / 16>(s, a);
+
+      // dV += P^T dO, or dK += dS^T Q: 16 q rows a step (two 8-row swizzle
+      // groups of 1024 bytes), read MN-major; the 64-column boxes are kBox64
+      // apart.
+      const uint32_t b_addr = DK ? q_addr : do_addr;
+      reg_fence(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kQStep / 16; ++kk)
+        wgmma_rs(acc, a[kk], smem_desc(b_addr + kk * 2048, kBox64, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+      if (++stage == kBwdStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    const float mul = DK ? p.scale : 1.f;
+    __nv_bfloat16* og = DK ? (__nv_bfloat16*)p.dk + (long long)b * p.dk_sb + (long long)hk * p.dk_sh
+                           : (__nv_bfloat16*)p.dv + (long long)b * p.dv_sb + (long long)hk * p.dv_sh;
+    const long long oss = DK ? p.dk_ss : p.dv_ss;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (col >= p.D) continue;
+      if (kr0 < p.Sk)
+        *reinterpret_cast<uint32_t*>(og + (long long)kr0 * oss + col) =
+            pack_bf16(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+      if (kr1 < p.Sk)
+        *reinterpret_cast<uint32_t*>(og + (long long)kr1 * oss + col) =
+            pack_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                  const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                  const BwdParams p) {
+  using L = DqSmem<DP>;
+  constexpr int NB = DP / kBoxCols;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t q_full = base + L::kBarOffset;
+  const uint32_t full0 = q_full + 8, empty0 = q_full + 8 * (1 + kBwdStages);
+  volatile int* info = reinterpret_cast<volatile int*>(smem_raw + (base - raw) + L::kBarOffset +
+                                                       8 * (1 + 2 * kBwdStages));
+
+  const int BH = p.B * p.Hq;
+  const int n_qb = (p.Sq + kBQ - 1) / kBQ;
+  const int qb = n_qb - 1 - (int)(blockIdx.x / (unsigned)BH);  // most work first
+  const int bh = (int)(blockIdx.x % (unsigned)BH);
+  const int b = bh / p.Hq, h = bh % p.Hq;
+  const int hk = h / (p.Hq / p.Hkv);
+  const int q0 = qb * kBQ;
+  init_ring(q_full, full0, empty0);
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: K4's walk over the kv tiles ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    const int qmin = p.q_bounds[2 * qb], qmax = p.q_bounds[2 * qb + 1];
+    if (lane == 0) {
+      mbar_expect_tx(q_full, 2 * L::kQBytes);
+#pragma unroll
+      for (int c = 0; c < NB; ++c) {
+        tma_load_4d(base + c * kBox128, &tq, q_full, c * kBoxCols, h, q0, b);
+        tma_load_4d(base + L::kQBytes + c * kBox128, &tdo, q_full, c * kBoxCols, h, q0, b);
+      }
+    }
+    const int n_kt = (p.Sk + kBKV - 1) / kBKV;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t0 = 0; t0 < n_kt; t0 += 32) {
+      const int kt = t0 + lane;
+      int kind = 0;
+      if (kt < n_kt)
+        kind = tile_kind(p.kv_bounds[2 * kt], p.kv_bounds[2 * kt + 1], (kt + 1) * kBKV <= p.Sk,
+                         qmin, qmax, p.window);
+      uint32_t live = __ballot_sync(0xffffffffu, kind != 0);
+      const uint32_t whole = __ballot_sync(0xffffffffu, kind == 2);
+      while (live) {
+        const int i = __ffs(live) - 1;
+        live &= live - 1;
+        if (lane == 0) {
+          const uint32_t full = full0 + 8 * stage;
+          const uint32_t k_dst = base + L::kRingOffset + stage * L::kTileBytes;
+          const uint32_t v_dst = base + L::kRingOffset + (kBwdStages + stage) * L::kTileBytes;
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);
+          info[stage] = ((t0 + i) << 1) | ((whole >> i) & 1);
+          mbar_expect_tx(full, 2 * L::kTileBytes);
+#pragma unroll
+          for (int c = 0; c < NB; ++c) {
+            tma_load_4d(k_dst + c * kBox128, &tk, full, c * kBoxCols, hk, (t0 + i) * kBKV, b);
+            tma_load_4d(v_dst + c * kBox128, &tv, full, c * kBoxCols, hk, (t0 + i) * kBKV, b);
+          }
+        }
+        if (++stage == kBwdStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    if (lane == 0) {  // the end marker
+      mbar_wait(empty0 + 8 * stage, phase ^ 1);
+      info[stage] = -1;
+      mbar_arrive(full0 + 8 * stage);
+    }
+  } else {
+    // ---- two consumer warpgroups, 64 q rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = (threadIdx.x >> 7) - 1;
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int g8 = lane >> 2, t4 = lane & 3;
+    // This thread's rows: r0 and r0 + 8 (the accumulators' rows).
+    const int r0 = q0 + 64 * cw + 16 * warp + g8, r1 = r0 + 8;
+    const int qp0 = r0 < p.Sq ? p.qpos[r0] : INT_MIN;
+    const int qp1 = r1 < p.Sq ? p.qpos[r1] : INT_MIN;
+    const float* lse_h = p.lse + row_base(p, b, h);
+    const float* delta_h = p.delta + row_base(p, b, h);
+    const float l0 = r0 < p.Sq ? lse_h[r0] * kLog2e : INFINITY;
+    const float l1 = r1 < p.Sq ? lse_h[r1] * kLog2e : INFINITY;
+    const float d0 = r0 < p.Sq ? delta_h[r0] : 0.f;
+    const float d1 = r1 < p.Sq ? delta_h[r1] : 0.f;
+    const float c = p.scale * kLog2e;
+
+    float dq[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+
+    // Q and dO rows of this warpgroup: 64 rows into each box.
+    const uint32_t q_addr = base + cw * 64 * 128;
+    const uint32_t do_addr = base + L::kQBytes + cw * 64 * 128;
+    mbar_wait(q_full, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (;;) {
+      mbar_wait(full0 + 8 * stage, phase);
+      const int tinfo = info[stage];
+      if (tinfo < 0) break;
+      const int k0 = (tinfo >> 1) * kBKV;
+      const bool masked = !(tinfo & 1);
+      const uint32_t k_addr = base + L::kRingOffset + stage * L::kTileBytes;
+      const uint32_t v_addr = base + L::kRingOffset + (kBwdStages + stage) * L::kTileBytes;
+      for (int half = 0; half < 2; ++half) {
+        // The half's 64 keys start 64 rows into each 128-row box.
+        const uint32_t kh = k_addr + half * 64 * 128, vh = v_addr + half * 64 * 128;
+        reg_fence(s);
+        reg_fence(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const uint32_t off = (kk >> 2) * kBox128 + (kk & 3) * 32;
+          wgmma_ss_n64(s, smem_desc(q_addr + off, 16, 1024), smem_desc(kh + off, 16, 1024),
+                       kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const uint32_t off = (kk >> 2) * kBox128 + (kk & 3) * 32;
+          wgmma_ss_n64(dp, smem_desc(do_addr + off, 16, 1024), smem_desc(vh + off, 16, 1024),
+                       kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(s);
+        reg_fence(dp);
+
+        // Element e of n8 chunk j: row r0 (e < 2) or r1, key k0 + 64 half +
+        // 8j + 2*t4 + (e & 1).  dS into s.
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float pv = exp2f(fmaf(s[4 * j + e], c, e < 2 ? -l0 : -l1));
+            if (masked) {
+              const int key = k0 + 64 * half + 8 * j + 2 * t4 + (e & 1);
+              const int kp = key < p.Sk ? __ldg(p.kpos + key) : INT_MAX;
+              if (!allowed(e < 2 ? qp0 : qp1, kp, p.window)) pv = 0.f;
+            }
+            s[4 * j + e] = pv * (dp[4 * j + e] - (e < 2 ? d0 : d1));
+          }
+        }
+        uint32_t da[4][4];
+        to_a_fragments<4>(s, da);
+
+        // dQ += dS K: 16 keys a step, K read MN-major.
+        reg_fence(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs(dq, da[kk], smem_desc(kh + kk * 2048, kBox128, 1024));
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(dq);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+      if (++stage == kBwdStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    __nv_bfloat16* dqg = (__nv_bfloat16*)p.dq + (long long)b * p.dq_sb + (long long)h * p.dq_sh;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (col >= p.D) continue;
+      if (r0 < p.Sq)
+        *reinterpret_cast<uint32_t*>(dqg + (long long)r0 * p.dq_ss + col) =
+            pack_bf16(dq[4 * j] * p.scale, dq[4 * j + 1] * p.scale);
+      if (r1 < p.Sq)
+        *reinterpret_cast<uint32_t*>(dqg + (long long)r1 * p.dq_ss + col) =
+            pack_bf16(dq[4 * j + 2] * p.scale, dq[4 * j + 3] * p.scale);
+    }
+  }
+}
+
+// -------------------------------- f32 -----------------------------------
+
+constexpr int kF32Threads = 128;
+constexpr int kF32Tile = 32;  // rows of a q tile and keys of a kv tile
+
+// DP: D rounded up to a multiple of 16.  Thread (key, c) of the 4 threads
+// of a key holds the columns d = c + 4*i of its dK and dV.
+template <int DP>
+__global__ void __launch_bounds__(kF32Threads)
+flash_bwd_dkdv_f32(const BwdParams p) {
+  constexpr int BQ = kF32Tile, BKV = kF32Tile, NC = DP / 4;
+  __shared__ float Qs[BQ * DP];
+  __shared__ float Gs[BQ * DP];  // dO
+  __shared__ float Ls[BQ], Ds[BQ];
+  __shared__ int Qp[BQ];
+  __shared__ int s_bounds[2];
+
+  const int BH = p.B * p.Hkv;
+  const int kt = (int)(blockIdx.x / (unsigned)BH);  // kv tile 0 first
+  const int bh = (int)(blockIdx.x % (unsigned)BH);
+  const int b = bh / p.Hkv, hk = bh % p.Hkv;
+  const int g = p.Hq / p.Hkv;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int k0 = kt * BKV, key = k0 + tid / 4, c = tid % 4;
+  const int kp = key < p.Sk ? p.kpos[key] : INT_MAX;
+
+  const float* kg = (const float*)p.k + (long long)b * p.k_sb + (long long)hk * p.k_sh;
+  const float* vg = (const float*)p.v + (long long)b * p.v_sb + (long long)hk * p.v_sh;
+  float kv[NC], vv[NC], dk[NC], dv[NC];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    const int d = c + 4 * i;
+    const bool in = key < p.Sk && d < p.D;
+    kv[i] = in ? kg[(long long)key * p.k_ss + d] : 0.f;
+    vv[i] = in ? vg[(long long)key * p.v_ss + d] : 0.f;
+    dk[i] = dv[i] = 0.f;
+  }
+  int kmin, kmax;
+  block_bounds(p.kpos, k0, min(BKV, p.Sk - k0), s_bounds, kmin, kmax);
+  const bool whole = k0 + BKV <= p.Sk;
+
+  const int n_qt = (p.Sq + BQ - 1) / BQ;
+  for (int hl = 0; hl < g; ++hl) {
+    const int h = hk * g + hl;
+    const float* qg = (const float*)p.q + (long long)b * p.q_sb + (long long)h * p.q_sh;
+    const float* gg = (const float*)p.dout + (long long)b * p.do_sb + (long long)h * p.do_sh;
+    const float* lse_h = p.lse + row_base(p, b, h);
+    const float* delta_h = p.delta + row_base(p, b, h);
+    for (int qt = 0; qt < n_qt; ++qt) {
+      const int q0 = qt * BQ;
+      const int qr = q0 + lane;  // the q tile's bounds, by every warp
+      const int qpv = qr < p.Sq ? p.qpos[qr] : 0;
+      const int kind = tile_kind(kmin, kmax, whole, warp_min(qr < p.Sq ? qpv : INT_MAX),
+                                 warp_max(qr < p.Sq ? qpv : INT_MIN), p.window);
+      if (kind == 0) continue;
+      for (int u = tid; u < BQ * DP; u += kF32Threads) {
+        const int r = u / DP, d = u % DP;
+        const bool in = q0 + r < p.Sq && d < p.D;
+        Qs[u] = in ? qg[(long long)(q0 + r) * p.q_ss + d] : 0.f;
+        Gs[u] = in ? gg[(long long)(q0 + r) * p.do_ss + d] : 0.f;
+      }
+      if (tid < BQ) {
+        const bool in = q0 + tid < p.Sq;
+        Ls[tid] = in ? lse_h[q0 + tid] : INFINITY;
+        Ds[tid] = in ? delta_h[q0 + tid] : 0.f;
+        Qp[tid] = in ? p.qpos[q0 + tid] : INT_MIN;
+      }
+      __syncthreads();
+      for (int qq = 0; qq < BQ; ++qq) {
+        float sp = 0.f, dpp = 0.f;
+#pragma unroll
+        for (int i = 0; i < NC; ++i) {
+          sp = fmaf(kv[i], Qs[qq * DP + c + 4 * i], sp);
+          dpp = fmaf(vv[i], Gs[qq * DP + c + 4 * i], dpp);
+        }
+        sp += __shfl_xor_sync(0xffffffffu, sp, 1);
+        sp += __shfl_xor_sync(0xffffffffu, sp, 2);
+        dpp += __shfl_xor_sync(0xffffffffu, dpp, 1);
+        dpp += __shfl_xor_sync(0xffffffffu, dpp, 2);
+        float pe = expf(sp * p.scale - Ls[qq]);
+        if (kind == 1 && !allowed(Qp[qq], kp, p.window)) pe = 0.f;
+        const float ds = pe * (dpp - Ds[qq]);
+#pragma unroll
+        for (int i = 0; i < NC; ++i) {
+          dv[i] = fmaf(pe, Gs[qq * DP + c + 4 * i], dv[i]);
+          dk[i] = fmaf(ds, Qs[qq * DP + c + 4 * i], dk[i]);
+        }
+      }
+      __syncthreads();
+    }
+  }
+  if (key < p.Sk) {
+    float* dkg = (float*)p.dk + (long long)b * p.dk_sb + (long long)hk * p.dk_sh +
+                 (long long)key * p.dk_ss;
+    float* dvg = (float*)p.dv + (long long)b * p.dv_sb + (long long)hk * p.dv_sh +
+                 (long long)key * p.dv_ss;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int d = c + 4 * i;
+      if (d < p.D) {
+        dkg[d] = dk[i] * p.scale;
+        dvg[d] = dv[i];
+      }
+    }
+  }
+}
+
+// Thread (row, c) of the 4 threads of a q row holds the columns d = c + 4*i
+// of its q, dO and dQ.
+template <int DP>
+__global__ void __launch_bounds__(kF32Threads)
+flash_bwd_dq_f32(const BwdParams p) {
+  constexpr int BQ = kF32Tile, BKV = kF32Tile, NC = DP / 4;
+  __shared__ float Ks[BKV * DP];
+  __shared__ float Vs[BKV * DP];
+  __shared__ int Kp[BKV];
+  __shared__ int s_bounds[2];
+
+  const int n_qb = (p.Sq + BQ - 1) / BQ;
+  const int q0 = (n_qb - 1 - (int)(blockIdx.x % n_qb)) * BQ;
+  const int bh = blockIdx.x / n_qb;
+  const int b = bh / p.Hq, h = bh % p.Hq;
+  const int hk = h / (p.Hq / p.Hkv);
+  const int tid = threadIdx.x;
+  const int r = q0 + tid / 4, c = tid % 4;
+
+  const float* qg = (const float*)p.q + (long long)b * p.q_sb + (long long)h * p.q_sh;
+  const float* gg = (const float*)p.dout + (long long)b * p.do_sb + (long long)h * p.do_sh;
+  const float* kg = (const float*)p.k + (long long)b * p.k_sb + (long long)hk * p.k_sh;
+  const float* vg = (const float*)p.v + (long long)b * p.v_sb + (long long)hk * p.v_sh;
+
+  int qmin, qmax;
+  block_bounds(p.qpos, q0, min(BQ, p.Sq - q0), s_bounds, qmin, qmax);
+  const bool row_in = r < p.Sq;
+  const int qp = row_in ? p.qpos[r] : INT_MIN;
+  const float lse_r = row_in ? p.lse[row_base(p, b, h) + r] : INFINITY;
+  const float delta_r = row_in ? p.delta[row_base(p, b, h) + r] : 0.f;
+
+  float qv[NC], gv[NC], dq[NC];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    const int d = c + 4 * i;
+    const bool in = row_in && d < p.D;
+    qv[i] = in ? qg[(long long)r * p.q_ss + d] : 0.f;
+    gv[i] = in ? gg[(long long)r * p.do_ss + d] : 0.f;
+    dq[i] = 0.f;
+  }
+
+  const int n_kt = (p.Sk + BKV - 1) / BKV;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BKV;
+    const int kind = classify_tile(p.kpos, k0, BKV, p.Sk, qmin, qmax, p.window);
+    if (kind == 0) continue;
+    for (int u = tid; u < BKV * DP; u += kF32Threads) {
+      const int key = u / DP, d = u % DP;
+      const bool in = k0 + key < p.Sk && d < p.D;
+      Ks[u] = in ? kg[(long long)(k0 + key) * p.k_ss + d] : 0.f;
+      Vs[u] = in ? vg[(long long)(k0 + key) * p.v_ss + d] : 0.f;
+    }
+    if (tid < BKV) Kp[tid] = k0 + tid < p.Sk ? p.kpos[k0 + tid] : INT_MAX;
+    __syncthreads();
+    for (int kk = 0; kk < BKV; ++kk) {
+      float sp = 0.f, dpp = 0.f;
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        sp = fmaf(qv[i], Ks[kk * DP + c + 4 * i], sp);
+        dpp = fmaf(gv[i], Vs[kk * DP + c + 4 * i], dpp);
+      }
+      sp += __shfl_xor_sync(0xffffffffu, sp, 1);
+      sp += __shfl_xor_sync(0xffffffffu, sp, 2);
+      dpp += __shfl_xor_sync(0xffffffffu, dpp, 1);
+      dpp += __shfl_xor_sync(0xffffffffu, dpp, 2);
+      float pe = expf(sp * p.scale - lse_r);
+      if (kind == 1 && !allowed(qp, Kp[kk], p.window)) pe = 0.f;
+      const float ds = pe * (dpp - delta_r);
+#pragma unroll
+      for (int i = 0; i < NC; ++i) dq[i] = fmaf(ds, Ks[kk * DP + c + 4 * i], dq[i]);
+    }
+    __syncthreads();
+  }
+  if (row_in) {
+    float* dqg = (float*)p.dq + (long long)b * p.dq_sb + (long long)h * p.dq_sh +
+                 (long long)r * p.dq_ss;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int d = c + 4 * i;
+      if (d < p.D) dqg[d] = dq[i] * p.scale;
+    }
+  }
+}
+
+// ------------------------------ host side -------------------------------
+
+template <bool BF16>
+int launch_delta(const BwdParams& p, cudaStream_t stream) {
+  const long long rows = (long long)p.B * p.Sq * p.Hq;
+  const long long blocks = (rows + kDeltaThreads / 32 - 1) / (kDeltaThreads / 32);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  flash_bwd_delta<BF16><<<(unsigned)blocks, kDeltaThreads, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int launch_f32(const BwdParams& p, cudaStream_t stream) {
+  const long long dkdv_ctas = (long long)((p.Sk + kF32Tile - 1) / kF32Tile) * p.B * p.Hkv;
+  const long long dq_ctas = (long long)((p.Sq + kF32Tile - 1) / kF32Tile) * p.B * p.Hq;
+  if (dkdv_ctas > 0x7fffffffLL || dq_ctas > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;  // gridDim.x's limit
+  int err = launch_delta<false>(p, stream);
+  if (err) return err;
+  flash_bwd_dkdv_f32<DP><<<(unsigned)dkdv_ctas, kF32Threads, 0, stream>>>(p);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  flash_bwd_dq_f32<DP><<<(unsigned)dq_ctas, kF32Threads, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int DP, bool DK>
+int launch_dkdv(const CUtensorMap& tq, const CUtensorMap& tdo, const CUtensorMap& tk,
+                const CUtensorMap& tv, const BwdParams& p, unsigned ctas, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkdv_bf16<DP, DK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      DkdvSmem<DP>::kBytes);
+  if (e != cudaSuccess) return (int)e;
+  flash_bwd_dkdv_bf16<DP, DK><<<ctas, kBwdThreads, DkdvSmem<DP>::kBytes, stream>>>(tq, tdo, tk,
+                                                                                   tv, p);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int launch_bf16(const BwdParams& p, int32_t* bounds, cudaStream_t stream) {
+  CUtensorMap tq128, tdo128, tq64, tdo64, tk, tv;
+  int err = encode(&tq128, p.q, p.B, p.Sq, p.Hq, p.D, p.q_sb, p.q_ss, p.q_sh, kBQ);
+  if (!err) err = encode(&tq64, p.q, p.B, p.Sq, p.Hq, p.D, p.q_sb, p.q_ss, p.q_sh, kQStep);
+  if (!err)
+    err = encode(&tdo128, p.dout, p.B, p.Sq, p.Hq, p.D, p.do_sb, p.do_ss, p.do_sh, kBQ);
+  if (!err)
+    err = encode(&tdo64, p.dout, p.B, p.Sq, p.Hq, p.D, p.do_sb, p.do_ss, p.do_sh, kQStep);
+  if (!err) err = encode(&tk, p.k, p.B, p.Sk, p.Hkv, p.D, p.k_sb, p.k_ss, p.k_sh, kBKV);
+  if (!err) err = encode(&tv, p.v, p.B, p.Sk, p.Hkv, p.D, p.v_sb, p.v_ss, p.v_sh, kBKV);
+  if (err) return err;
+  const long long dkdv_ctas = (long long)n_tiles(p.Sk) * p.B * p.Hkv;
+  const long long dq_ctas = (long long)n_tiles(p.Sq) * p.B * p.Hq;
+  if (dkdv_ctas > 0x7fffffffLL || dq_ctas > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;  // gridDim.x's limit
+  err = launch_plan(p.qpos, p.kpos, p.Sq, p.Sk, bounds, stream);
+  if (!err) err = launch_delta<true>(p, stream);
+  if (err) return err;
+  BwdParams bp = p;
+  bp.kv_bounds = bounds;
+  bp.q_bounds = bounds + 2 * n_tiles(p.Sk);
+  err = launch_dkdv<DP, false>(tq64, tdo64, tk, tv, bp, (unsigned)dkdv_ctas, stream);
+  if (!err) err = launch_dkdv<DP, true>(tq64, tdo64, tk, tv, bp, (unsigned)dkdv_ctas, stream);
+  if (err) return err;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, DqSmem<DP>::kBytes);
+  if (e != cudaSuccess) return (int)e;
+  flash_bwd_dq_bf16<DP><<<(unsigned)dq_ctas, kBwdThreads, DqSmem<DP>::kBytes, stream>>>(
+      tq128, tdo128, tk, tv, bp);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q, out, dout, dq: [B, Sq, Hq, D]; k, v, dk, dv: [B, Sk, Hkv, D], each with
+// its last dim contiguous and the given element strides (q, k, v, out,
+// dout, dq, dk, dv in that order); lse: f32 [B, Hq, Sq] from K4's forward
+// (natural log); qpos int32[Sq], kpos int32[Sk].  dtype 0: float32, 1:
+// bfloat16 (every tensor but lse in it).  window <= 0: none.  scale
+// multiplies q . k (the reference's 1/sqrt(D), rounded to f32).  bounds
+// (bf16 only): int32 scratch of 2 * (ceil(Sk / 128) + ceil(Sq / 128))
+// values; delta: f32 scratch of B * Hq * Sq values.  The caller checks D <=
+// 128, D % 8 == 0, Hq % Hkv == 0, and for bf16 16-byte aligned bases and
+// strides (TMA's).  Launches on `stream` (bf16: the plan, delta, dK/dV,
+// dQ; f32: delta, dK/dV, dQ) and returns 0, a cudaError_t, or 1000 plus
+// the CUresult of a tensor map the driver refused.
+extern "C" int flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* out, const void* dout,
+    const void* lse, void* dq, void* dk, void* dv, const void* qpos, const void* kpos,
+    void* bounds, void* delta, int B, int Sq, int Sk, int Hq, int Hkv, int D, long long q_sb,
+    long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long o_sb, long long o_ss,
+    long long o_sh, long long do_sb, long long do_ss, long long do_sh, long long dq_sb,
+    long long dq_ss, long long dq_sh, long long dk_sb, long long dk_ss, long long dk_sh,
+    long long dv_sb, long long dv_ss, long long dv_sh, int window, float scale, int dtype,
+    void* stream) {
+  BwdParams p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.out = out;
+  p.dout = dout;
+  p.lse = (const float*)lse;
+  p.delta = (float*)delta;
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.qpos = (const int32_t*)qpos;
+  p.kpos = (const int32_t*)kpos;
+  p.kv_bounds = nullptr;
+  p.q_bounds = nullptr;
+  p.B = B;
+  p.Sq = Sq;
+  p.Sk = Sk;
+  p.Hq = Hq;
+  p.Hkv = Hkv;
+  p.D = D;
+  p.q_sb = q_sb;
+  p.q_ss = q_ss;
+  p.q_sh = q_sh;
+  p.k_sb = k_sb;
+  p.k_ss = k_ss;
+  p.k_sh = k_sh;
+  p.v_sb = v_sb;
+  p.v_ss = v_ss;
+  p.v_sh = v_sh;
+  p.o_sb = o_sb;
+  p.o_ss = o_ss;
+  p.o_sh = o_sh;
+  p.do_sb = do_sb;
+  p.do_ss = do_ss;
+  p.do_sh = do_sh;
+  p.dq_sb = dq_sb;
+  p.dq_ss = dq_ss;
+  p.dq_sh = dq_sh;
+  p.dk_sb = dk_sb;
+  p.dk_ss = dk_ss;
+  p.dk_sh = dk_sh;
+  p.dv_sb = dv_sb;
+  p.dv_ss = dv_ss;
+  p.dv_sh = dv_sh;
+  p.window = window;
+  p.scale = scale;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1) {
+    if (D <= 64) return launch_bf16<64>(p, (int32_t*)bounds, s);
+    return launch_bf16<128>(p, (int32_t*)bounds, s);
+  }
+  if (D <= 16) return launch_f32<16>(p, s);
+  if (D <= 32) return launch_f32<32>(p, s);
+  if (D <= 64) return launch_f32<64>(p, s);
+  return launch_f32<128>(p, s);
+}
+
+// Dynamic shared memory of one bf16 CTA at head dim D: kernel 0 the dK/dV
+// kernel, 1 the dQ kernel.
+extern "C" int flash_attention_bwd_smem(int D, int kernel) {
+  if (kernel == 0) return D <= 64 ? DkdvSmem<64>::kBytes : DkdvSmem<128>::kBytes;
+  return D <= 64 ? DqSmem<64>::kBytes : DqSmem<128>::kBytes;
+}

@@ -1,4 +1,4 @@
-"""Wrapper of the flash-attention kernel K4 (counterpart of
+"""Wrappers of the flash-attention kernels K4 and K4b (counterpart of
 ``repro.kernels.flash_attention.ops``): causal, optionally sliding-window,
 grouped-query attention over the model's ``[B, S, H, D]`` tensors.
 
@@ -6,10 +6,14 @@ grouped-query attention over the model's ``[B, S, H, D]`` tensors.
 (``csrc/flash_attention.cu``) on a CUDA tensor, the plain version
 (``ref.py``) on a CPU tensor.  ``flash_attention.launches`` counts the
 kernel's calls (one per call: on bfloat16 the tile plan and the attention
-are two launches on the stream).  K4 has no backward: under autograd
-:func:`flash_attention` raises rather than return an output with no
-gradient, and :func:`flash_attention_trainable` is the trainable route
-(K4's forward, the chunked path's backward), as in the reference.
+are two launches on the stream).  K4 has no backward of its own: under
+autograd :func:`flash_attention` raises rather than return an output with
+no gradient, and :func:`flash_attention_trainable` is the trainable route,
+as in the reference: K4's forward (which then also writes each row's
+log-sum-exp) and, on a CUDA tensor, the backward kernel K4b
+(:func:`flash_attention_bwd`, ``csrc/flash_attention_bwd.cu``; counted in
+``flash_attention_bwd.launches``), whose plain version is the chunked
+path's vjp (``models.attention.chunked_vjp``), the reference's backward.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from repro_torch.kernels import load_library, use_kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref, tile_bounds_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The kernel's tiles: q rows per CTA and keys per kv tile.
@@ -41,7 +46,7 @@ def _library():
     lib = load_library(SOURCE)
     lib.flash_attention_fwd.restype = ctypes.c_int
     lib.flash_attention_fwd.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
         + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
     lib.flash_attention_plan.restype = ctypes.c_int
@@ -50,6 +55,20 @@ def _library():
     )
     lib.flash_attention_bf16_smem.restype = ctypes.c_int
     lib.flash_attention_bf16_smem.argtypes = [ctypes.c_int]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_library():
+    """K4b's built library, with its entry points' argument types declared."""
+    lib = load_library(BWD_SOURCE)
+    lib.flash_attention_bwd.restype = ctypes.c_int
+    lib.flash_attention_bwd.argtypes = (
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 24
+        + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    )
+    lib.flash_attention_bwd_smem.restype = ctypes.c_int
+    lib.flash_attention_bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib
 
 
@@ -68,6 +87,13 @@ def _n_tiles(n: int) -> int:
 def bf16_smem_bytes(d: int) -> int:
     """Dynamic shared memory of one bfloat16 CTA at head dim ``d``."""
     return _library().flash_attention_bf16_smem(d)
+
+
+def bwd_bf16_smem_bytes(d: int) -> dict:
+    """Dynamic shared memory of one bfloat16 CTA of K4b's dK/dV and dQ
+    kernels at head dim ``d``."""
+    lib = _bwd_library()
+    return {"dkdv": lib.flash_attention_bwd_smem(d, 0), "dq": lib.flash_attention_bwd_smem(d, 1)}
 
 
 def tile_bounds(q_positions: torch.Tensor, kv_positions: torch.Tensor) -> torch.Tensor:
@@ -89,18 +115,28 @@ def tile_bounds(q_positions: torch.Tensor, kv_positions: torch.Tensor) -> torch.
     return bounds
 
 
-def _launch(q, k, v, out, qpos, kpos, window: Optional[int]) -> None:
+def _plan_scratch(q, sk: int) -> Optional[torch.Tensor]:
+    """The bfloat16 route's scratch for the tile plan (None for float32)."""
+    if q.dtype != torch.bfloat16:
+        return None
+    return torch.empty(2 * (_n_tiles(sk) + _n_tiles(q.shape[1])), dtype=torch.int32,
+                       device=q.device)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(q, k, v, out, qpos, kpos, window: Optional[int],
+            lse: Optional[torch.Tensor] = None) -> None:
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    bounds = None
-    if q.dtype == torch.bfloat16:  # the plan's scratch
-        bounds = torch.empty(2 * (_n_tiles(sk) + _n_tiles(sq)), dtype=torch.int32,
-                             device=q.device)
+    bounds = _plan_scratch(q, sk)
     with torch.cuda.device(q.device):
         err = _library().flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            qpos.data_ptr(), kpos.data_ptr(), None if bounds is None else bounds.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
+            qpos.data_ptr(), kpos.data_ptr(), _ptr(bounds),
             b, sq, sk, hq, hkv, d, *strides,
             0 if window is None else int(window), 1.0 / (d ** 0.5), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
@@ -190,47 +226,138 @@ def flash_attention(
         raise RuntimeError(
             "flash_attention has no backward: call it under torch.no_grad() or "
             "torch.inference_mode(), or train through flash_attention_trainable "
-            "(K4's forward with the chunked path's backward)")
+            "(K4's forward with its backward kernel K4b)")
     if not use_kernel(q):
         return flash_attention_ref(q, k, v, q_positions, kv_positions, window=window)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not _kernel_layout_ok(t):
-            raise ValueError(f"{name}: the kernel needs a contiguous last dim and, for "
-                             "bfloat16, 16-byte aligned rows (strides multiple of 8)")
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    if q.shape[1] == 0 or q.shape[0] == 0:
-        return out
-    qpos = q_positions.to(torch.int32).contiguous()
-    kpos = kv_positions.to(torch.int32).contiguous()
-    _launch(q, k, v, out, qpos, kpos, window)
-    return out
+    return _kernel_forward(q, k, v, q_positions, kv_positions, window, with_lse=False)[0]
 
 
 flash_attention.launches = 0
 
 
+def _check_layout(**tensors) -> None:
+    for name, t in tensors.items():
+        if not _kernel_layout_ok(t):
+            raise ValueError(f"{name}: the kernel needs a contiguous last dim and, for "
+                             "bfloat16, 16-byte aligned rows (strides multiple of 8)")
+
+
+def _positions(q_positions, kv_positions):
+    return (q_positions.to(torch.int32).contiguous(),
+            kv_positions.to(torch.int32).contiguous())
+
+
+def _kernel_forward(q, k, v, q_positions, kv_positions, window, *, with_lse: bool):
+    """K4 on checked CUDA tensors: (out, each row's log-sum-exp as float32
+    ``[B, Hq, Sq]`` in natural log, or None)."""
+    _check_layout(q=q, k=k, v=v)
+    b, sq, hq, _ = q.shape
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if with_lse else None
+    if sq == 0 or b == 0:
+        return out, lse
+    qpos, kpos = _positions(q_positions, kv_positions)
+    _launch(q, k, v, out, qpos, kpos, window, lse)
+    return out, lse
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,  # [B, Sq, Hq, D]
+    k: torch.Tensor,  # [B, Sk, Hkv, D]
+    v: torch.Tensor,
+    out: torch.Tensor,  # K4's output, [B, Sq, Hq, D]
+    dout: torch.Tensor,  # its cotangent
+    lse: Optional[torch.Tensor],  # K4's float32 [B, Hq, Sq] log-sum-exp (natural log)
+    *,
+    q_positions: torch.Tensor,
+    kv_positions: torch.Tensor,
+    window: Optional[int] = None,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+):
+    """(dq, dk, dv) of causal (+ sliding-window) GQA attention at ``dout``,
+    in q's dtype: K4b on a CUDA tensor (one call, counted in
+    ``flash_attention_bwd.launches``), from K4's ``out`` and ``lse``.  On a
+    CPU tensor its plain version, the vjp of the chunked path at ``q_chunk``
+    x ``kv_chunk`` (``models.attention.chunked_vjp``: the reference's
+    backward, re-run from q, k, v, so ``out`` and ``lse`` are not read);
+    the kernel picks its own tiles.  ``dout`` is made contiguous when its
+    layout is one the kernel does not take (autograd's cotangents can be
+    expanded views); q, k, v and out must be in K4's layout."""
+    _check(q, k, v, q_positions, kv_positions, window)
+    if not use_kernel(q):
+        from repro_torch.models.attention import chunked_vjp
+
+        return chunked_vjp(q, k, v, dout, q_positions=q_positions, kv_positions=kv_positions,
+                           window=window, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    b, sq, hq, _ = q.shape
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout {tuple(dout.shape)}: need q's "
+                         f"shape {tuple(q.shape)}")
+    if out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError(f"out and dout: need q's dtype {q.dtype}; got {out.dtype}, "
+                         f"{dout.dtype}")
+    if lse is None or lse.dtype != torch.float32 or lse.shape != (b, hq, sq) or (
+            not lse.is_contiguous()):
+        raise ValueError(f"lse: need contiguous float32 [{b}, {hq}, {sq}] from K4's forward")
+    if not (out.device == dout.device == lse.device == q.device):
+        raise ValueError("out, dout and lse must lie on q's device")
+    if not _kernel_layout_ok(dout):
+        dout = dout.contiguous()
+    _check_layout(q=q, k=k, v=v, out=out, dout=dout)
+    if sq == 0 or b == 0:  # no query: no gradient reaches k or v
+        return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    # The kernels write every row of each.
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    qpos, kpos = _positions(q_positions, kv_positions)
+    sk, hkv, d = k.shape[1], k.shape[2], k.shape[3]
+    bounds = _plan_scratch(q, sk)
+    delta = torch.empty(b * hq * sq, dtype=torch.float32, device=q.device)
+    strides = [s for t in (q, k, v, out, dout, dq, dk, dv) for s in t.stride()[:3]]
+    with torch.cuda.device(q.device):
+        err = _bwd_library().flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), qpos.data_ptr(),
+            kpos.data_ptr(), _ptr(bounds), delta.data_ptr(), b, sq, sk, hq, hkv, d, *strides,
+            0 if window is None else int(window), 1.0 / (d ** 0.5), _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _raise_on(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
 class _FlashTrainable(torch.autograd.Function):
-    """K4's forward; the backward is the vjp of the chunked path
-    (``models.attention._chunked_gqa``) at the backward's chunk sizes,
-    re-run from q, k, v: K4's output is not used in it."""
+    """K4's forward; the backward is :func:`flash_attention_bwd`: K4b from
+    K4's output and log-sum-exp on a CUDA tensor, the vjp of the chunked
+    path (``models.attention._chunked_gqa``) at the backward's chunk sizes,
+    re-run from q, k, v, on a CPU tensor."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_positions, kv_positions, window, bwd_q_chunk, bwd_kv_chunk):
-        ctx.save_for_backward(q, k, v, q_positions, kv_positions)
+        _check(q, k, v, q_positions, kv_positions, window)
+        if use_kernel(q):
+            out, lse = _kernel_forward(q, k, v, q_positions, kv_positions, window,
+                                       with_lse=True)
+        else:
+            out, lse = flash_attention_ref(q, k, v, q_positions, kv_positions,
+                                           window=window), None
+        ctx.save_for_backward(q, k, v, out, lse, q_positions, kv_positions)
         ctx.chunks = (window, bwd_q_chunk, bwd_kv_chunk)
-        # Grad mode is off inside forward, so this is K4's plain call.
-        return flash_attention(q, k, v, q_positions=q_positions, kv_positions=kv_positions,
-                               window=window)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        from repro_torch.models.attention import chunked_vjp
-
-        q, k, v, q_positions, kv_positions = ctx.saved_tensors
+        q, k, v, out, lse, q_positions, kv_positions = ctx.saved_tensors
         window, q_chunk, kv_chunk = ctx.chunks
-        dq, dk, dv = chunked_vjp(q, k, v, dout, q_positions=q_positions,
-                                 kv_positions=kv_positions, window=window,
-                                 q_chunk=q_chunk, kv_chunk=kv_chunk)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, q_positions=q_positions,
+                                         kv_positions=kv_positions, window=window,
+                                         q_chunk=q_chunk, kv_chunk=kv_chunk)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -238,13 +365,14 @@ def flash_attention_trainable(
     q, k, v, *, q_positions, kv_positions, window=None,
     bwd_q_chunk: int = 512, bwd_kv_chunk: int = 1024,
 ):
-    """K4's forward (the kernel on a CUDA tensor, its plain version on a CPU
-    tensor) glued to the chunked path's backward by a
-    ``torch.autograd.Function``: the reference's training route.  The
-    backward re-runs ``_chunked_gqa`` on the grouped q, k, v at
-    ``bwd_q_chunk`` x ``bwd_kv_chunk`` and takes its vjp (the per-chunk
+    """K4's forward glued to a backward by a ``torch.autograd.Function``:
+    the reference's training route.  On a CUDA tensor K4 (once, also
+    writing each row's log-sum-exp) and K4b (once): no torch-op attention
+    runs, and a K4b that fails to build or launch raises.  On a CPU tensor
+    K4's plain version, and the vjp of ``_chunked_gqa`` re-run on the
+    grouped q, k, v at ``bwd_q_chunk`` x ``bwd_kv_chunk`` (the per-chunk
     recompute from the saved log-sum-exp), as the reference does.  The
     reference's Pallas tile arguments (``block_q``, ``block_kv``,
-    ``interpret``) are not taken: the kernel picks its own tiles."""
+    ``interpret``) are not taken: the kernels pick their own tiles."""
     return _FlashTrainable.apply(q, k, v, q_positions, kv_positions, window,
                                  bwd_q_chunk, bwd_kv_chunk)

@@ -9,7 +9,10 @@ the block size).  Padding changes no real row: a padded key carries the
 position 2^30, which no query reaches, and its probability is exactly 0.
 
 Used on CPU tensors by the wrapper, by the CPU tests, and by
-``chip_smoke.py`` as the plain version K4 is held against on the card.
+``chip_smoke.py`` as the plain version K4 is held against on the card;
+:func:`flash_attention_lse_ref` is the plain version of the log-sum-exp K4
+writes for its backward K4b (whose own plain version is the chunked path's
+vjp, ``models.attention.chunked_vjp``).
 :func:`tile_bounds_ref` and :func:`tile_plan_ref` are the plain versions of
 the bfloat16 route's tile plan (which kv tiles a q block skips, masks per
 element, or takes whole).
@@ -52,6 +55,31 @@ def flash_attention_ref(
     s.div_(s.sum(dim=-1, keepdim=True).clamp_min_(1e-30))
     out = torch.einsum("bhgqk,bkhd->bqhgd", s.to(v.dtype).float(), v.float())
     return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def flash_attention_lse_ref(
+    q: torch.Tensor,  # [B, Sq, Hq, D]
+    k: torch.Tensor,  # [B, Sk, Hkv, D]
+    q_positions: torch.Tensor,  # int[Sq]
+    kv_positions: torch.Tensor,  # int[Sk]
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """float32 ``[B, Hq, Sq]``: each row's log-sum-exp of its allowed
+    scores q.k/sqrt(D) (natural log, f32), ``+inf`` for a row with no
+    allowed key, as the reference's ``_chunked_gqa`` keeps it: the plain
+    version of what K4 writes for its backward (K4b)."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    scale = 1.0 / (d ** 0.5)
+    qg = q.reshape(b, sq, hkv, hq // hkv, d).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()).mul_(scale)
+    qp, kp = q_positions.long(), kv_positions.long()
+    ok = kp[None, :] <= qp[:, None]
+    if window is not None:
+        ok &= kp[None, :] > qp[:, None] - window
+    lse = s.masked_fill_(~ok, -torch.inf).logsumexp(dim=-1)  # [b, hkv, g, sq]
+    return lse.masked_fill_(~ok.any(dim=-1), torch.inf).reshape(b, hq, sq)
 
 
 def _block_min_max(pos: torch.Tensor, block: int) -> torch.Tensor:

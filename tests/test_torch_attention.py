@@ -10,6 +10,8 @@ reference's own limits for its chunked backward.  K4 itself runs only on the car
 tests/test_torch_cuda.py holds it against this plain version.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -298,6 +300,91 @@ def test_flash_trainable_grads_match_reference_and_dense():
         np.testing.assert_allclose(g.numpy(), np.asarray(wg), **GRAD_TOL)
         torch.testing.assert_close(g, dg, **GRAD_TOL)
         assert torch.equal(g, cg)
+
+
+# (B, Sq, Sk, Hq, Hkv, D, window, offset of the q positions from the
+# keys' 0..Sk-1, dtype).  A negative offset leaves the first rows with no
+# allowed key (+inf); queries that are the tail of the keys; windows.
+LSE_CASES = [
+    (1, 64, 64, 4, 2, 16, None, 0, "float32"),
+    (2, 48, 96, 6, 2, 32, 20, 48, "float32"),
+    (1, 40, 40, 2, 1, 8, None, -5, "bfloat16"),
+    (1, 70, 50, 4, 4, 24, 7, -3, "float32"),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,window,offset,dtype", LSE_CASES)
+def test_flash_lse_plain_matches_numpy(b, sq, sk, hq, hkv, d, window, offset, dtype):
+    """The plain version of the log-sum-exp K4 writes for its backward:
+    each row's logsumexp of its allowed scores q.k/sqrt(D) (natural log),
+    +inf for a row with no allowed key, against numpy in float64 (rtol =
+    atol 1e-5: the plain version sums in f32)."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_lse_ref
+
+    rng = np.random.default_rng(sq + d)
+    tq = torch.from_numpy(_f32(rng, (b, sq, hq, d))).to(getattr(torch, dtype))
+    tk = torch.from_numpy(_f32(rng, (b, sk, hkv, d))).to(getattr(torch, dtype))
+    kpos = np.arange(sk, dtype=np.int32)
+    qpos = np.arange(sq, dtype=np.int32) + offset
+    got = flash_attention_lse_ref(tq, tk, torch.from_numpy(qpos), torch.from_numpy(kpos),
+                                  window=window).numpy()
+    assert got.shape == (b, hq, sq) and got.dtype == np.float32
+    qn, kn = tq.double().numpy(), tk.double().numpy()
+    ok = kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        ok &= kpos[None, :] > qpos[:, None] - window
+    assert (~ok.any(axis=1)).any() == (offset < 0)  # the cases with a keyless row
+    want = np.empty((b, hq, sq))
+    for h in range(hq):
+        s = np.einsum("bqd,bkd->bqk", qn[:, :, h], kn[:, :, h // (hq // hkv)]) / np.sqrt(d)
+        s = np.where(ok[None], s, -np.inf)
+        top = s.max(axis=-1, keepdims=True)
+        with np.errstate(invalid="ignore"):
+            lse = (top + np.log(np.exp(s - top).sum(axis=-1, keepdims=True)))[..., 0]
+        want[:, h] = np.where(ok.any(axis=1)[None], lse, np.inf)
+    np.testing.assert_array_equal(np.isposinf(got), np.isposinf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("fault", ["build", "launch"])
+def test_flash_bwd_kernel_route_raises_and_never_falls_back(fault, monkeypatch):
+    """On the kernel route (forced here on CPU tensors) a K4b that fails to
+    build or to launch raises, and the plain version (the chunked vjp) is
+    never run in its place."""
+    import types
+
+    from repro_torch.kernels.flash_attention import ops
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the kernel route reached chunked_vjp")
+
+    monkeypatch.setattr(attention, "chunked_vjp", no_plain)
+    monkeypatch.setattr(ops, "use_kernel", lambda t: True)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    if fault == "build":
+        def nvcc_fails(source, **kwargs):
+            raise RuntimeError(f"nvcc failed on {source.name} (1)")
+
+        monkeypatch.setattr(ops, "load_library", nvcc_fails)
+        ops._bwd_library.cache_clear()  # a failed build is not cached
+        match = "nvcc failed on flash_attention_bwd.cu"
+    else:
+        lib = types.SimpleNamespace(flash_attention_bwd=lambda *args: 700)  # illegal address
+        monkeypatch.setattr(ops, "_bwd_library", lambda: lib)
+        match = "flash_attention_bwd launch failed: cudaError 700"
+    rng = np.random.default_rng(0)
+    b, s, hq, hkv, d = 1, 16, 4, 2, 16
+    q, out, dout = (torch.from_numpy(_f32(rng, (b, s, hq, d))) for _ in range(3))
+    k, v = (torch.from_numpy(_f32(rng, (b, s, hkv, d))) for _ in range(2))
+    lse = torch.zeros(b, hq, s)
+    pos = torch.arange(s, dtype=torch.int32)
+    before = ops.flash_attention_bwd.launches
+    with pytest.raises(RuntimeError, match=match):
+        ops.flash_attention_bwd(q, k, v, out, dout, lse, q_positions=pos, kv_positions=pos)
+    assert ops.flash_attention_bwd.launches == before
 
 
 @pytest.mark.parametrize("which", ["q", "k", "v"])
