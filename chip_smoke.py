@@ -204,7 +204,8 @@ def phase_environment() -> str:
 def phase_build() -> None:
     """Builds K1, K2, K3, K4 and K4b from this checkout's sources, one
     ``nvcc`` per source, all started together.  Then K4's and K4b's kernels
-    as ``ptxas`` built them (registers, spills, shared memory) and the count
+    as ``ptxas`` built them (registers, spills, shared memory; a K4b bf16
+    kernel that spills fails) and the count
     of ``wgmma`` (HGMMA) and TMA load (UTMALDG) instructions in each
     library's SASS; K1's, K2's and K3's atomic and warp-exchange
     instructions by form (K1 must have no shared atomic and a global
@@ -232,6 +233,11 @@ def phase_build() -> None:
         ptxas = str(BUILD_LOG.get(source.name, {}).get("ptxas", ""))
         for name, props in _ptxas_kernels(ptxas).items():
             log(f"build.{label}", kernel=name, **props)
+            # K4b's bf16 kernels keep both accumulators in registers (one
+            # dK/dV pass): a spill there is a regression.
+            if label == "k4b" and "bf16" in name and (
+                    props.get("spill_stores") or props.get("spill_loads")):
+                raise AssertionError(f"K4b's {name} spills: {props}")
         found = sass_counts(library_path(source), r"\b(?:HGMMA|UTMALDG|MUFU\.EX2|HMMA)\b")
         counts = {op: found.get(op, 0) for op in ("HGMMA", "UTMALDG", "MUFU.EX2", "HMMA")}
         log(f"build.{label}", sass_instructions=counts,
@@ -3078,6 +3084,72 @@ def train_attention_bound_ms(q, k, pairs: int) -> tuple:
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def k4b_launch_ms(fn, n: int):
+    """{kernel: device ms a launch} of ``fn``'s kernels over ``n`` calls
+    under ``torch.profiler`` (K4b: the plan, the delta pre-pass, the dK/dV
+    and dQ kernels, each launched once a call), the mean over the launches
+    the profiler recorded; "not measured" if it recorded none.  Run in a
+    fresh process (``k4b_split``): late in this script's process the
+    profiler kept only some of these short windows' device events."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    us, count = {}, {}
+    for ev in prof.key_averages():
+        m = re.search(r"(flash_\w+)(<[^>(]*>)?", ev.key)
+        if ev.device_type != cuda or m is None:
+            continue
+        name = m.group(1) + (m.group(2) or "")
+        us[name] = us.get(name, 0) + (getattr(ev, "self_device_time_total", None)
+                                      or getattr(ev, "self_cuda_time_total", 0))
+        count[name] = count.get(name, 0) + ev.count
+    split = {name: us[name] / count[name] / 1e3 for name in us if count[name]}
+    return split or "not measured (the profiler recorded no device events)"
+
+
+def k4b_split() -> dict:
+    """{dtype: ``k4b_launch_ms``} of K4b at TRAIN_ATTN on path 11's inputs,
+    bf16 and f32, 10 calls each (a child process's work)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+
+    b, s, hq, hkv, d = TRAIN_ATTN
+    split = {}
+    for dtype in ("bfloat16", "float32"):
+        q, k, v, pos = _flash_inputs(b, s, hq, hkv, d, dtype, seed=11)
+        g = torch.Generator(device=DEV).manual_seed(12)
+        dout = torch.randn(q.shape, generator=g, device=DEV).to(q.dtype)
+        out, lse = ops._kernel_forward(q, k, v, pos, pos, None, with_lse=True)
+        split[dtype] = k4b_launch_ms(lambda: ops.flash_attention_bwd(
+            q, k, v, out, dout, lse, q_positions=pos, kv_positions=pos), n=10)
+    return split
+
+
+def k4b_split_child() -> dict:
+    """``k4b_split`` in a fresh process (its libraries from the build cache);
+    on a failure each dtype reads "not measured" with the child's error."""
+    import os
+
+    code = "import json, chip_smoke; print(json.dumps(chip_smoke.k4b_split()))"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        why = f"not measured (the child failed: {proc.stderr.strip()[-300:]})"
+        return {"bfloat16": why, "float32": why}
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def k4b_bound_ms(q, k, pairs: int) -> tuple:
     """Least time for K4b alone: 10·D FLOPs per allowed pair and query head
     (s, dp, dv, dq and dk, 2·D each) at the dtype's peak; bytes: q, k, v,
@@ -3217,6 +3289,7 @@ def phase_train_attention(smi: str) -> dict:
     b, s, hq, hkv, d = TRAIN_ATTN
     qc, kc = TRAIN_CHUNKS
     out_rec, launches, bwd_launches, bwd_errs = {}, 0, 0, {}
+    split = k4b_split_child()  # K4b's device time by launch
     for dtype in ("bfloat16", "float32"):
         t0 = time.perf_counter()
         q, k, v, pos = _flash_inputs(b, s, hq, hkv, d, dtype, seed=11)
@@ -3259,6 +3332,13 @@ def phase_train_attention(smi: str) -> dict:
         out_bitwise = torch.equal(out_l, flash_attention(q, k, v, q_positions=pos,
                                                          kv_positions=pos))
         del lse_ref
+        # K4b run to run: two calls on the same inputs, and the driven run's.
+        reruns = [flash_attention_bwd(q, k, v, out_l, dout, lse, q_positions=pos,
+                                      kv_positions=pos, q_chunk=qc, kv_chunk=kc)
+                  for _ in range(2)]
+        rerun_bitwise = all(torch.equal(a, b_) and torch.equal(a, c)
+                            for a, b_, c in zip(reruns[0], reruns[1], got))
+        del reruns
         ref = plain_bwd()
         bwd = grad_errors(got, ref, dtype)
         controls = {name: grad_errors(c, ref, dtype) for name, c in
@@ -3293,6 +3373,7 @@ def phase_train_attention(smi: str) -> dict:
         log("train.k4", dtype=dtype, shape=f"B{b}_S{s}_H{hq}/{hkv}_D{d}", launches=counts,
             forward=fwd, forward_tol=f"rtol=atol={FLASH_TOL[dtype]}, row {FLASH_ROW_TOL[dtype]}",
             lse_max_abs_err=lse_err, no_grad_output_bitwise_with_lse=out_bitwise,
+            k4b_rerun_bitwise=rerun_bitwise,
             grads_vs_chunked_vjp=bwd, grads_tol=TRAINABLE_BWD_TOL[dtype], controls=controls,
             vs_f64_truth=vs_truth,
             chunks=TRAIN_CHUNKS, vs_dense_autodiff=dense or "bf16: not held (f32 only)",
@@ -3300,6 +3381,7 @@ def phase_train_attention(smi: str) -> dict:
         bad = [f"forward {fwd}"] if fwd["outside"] or fwd["rows_outside"] else []
         bad += [] if lse_err <= LSE_TOL else [f"lse off the plain one by {lse_err}"]
         bad += [] if out_bitwise else ["the output with lse differs from the no-grad one"]
+        bad += [] if rerun_bitwise else ["two K4b calls on the same inputs differ"]
         bad += [f"grads vs chunked vjp {bwd}"] if bwd["outside"] or bwd["rel_l2_outside"] else []
         bad += [f"the {n} control passes" for n, c in controls.items()
                 if not (c["outside"] or c["rel_l2_outside"])]
@@ -3338,7 +3420,8 @@ def phase_train_attention(smi: str) -> dict:
         fwd_bound, fwd_by = flash_bound_ms(q, k, pairs)
         fb_bound, fb_by = train_attention_bound_ms(q, k, pairs)
         k4b_bound, k4b_by = k4b_bound_ms(q, k, pairs)
-        rec = dict(k4_fwd_ms=k4_ms, k4b_ms=k4b_ms, k4b_plain_ms_chunked_vjp=k4b_plain_ms,
+        rec = dict(k4_fwd_ms=k4_ms, k4b_ms=k4b_ms, k4b_device_ms_by_launch=split[dtype],
+                   k4b_plain_ms_chunked_vjp=k4b_plain_ms,
                    chunked_bwd_ms=bwd_ms, chunked_fwd_bwd_ms=chunked_ms,
                    trainable_fwd_bwd_ms=trainable_ms, library_fwd_bwd_ms_sdpa=sdpa_ms,
                    library_bwd_ms_sdpa=sdpa_bwd_ms, fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,

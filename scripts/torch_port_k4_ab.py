@@ -5,6 +5,12 @@
     git archive <parent> | tar -x -C build/parent
     python3 scripts/torch_port_k4_ab.py --parent build/parent
 
+0. The register question: this tree's one-pass dK/dV kernel (256 threads)
+   and the same pass in the 384-thread shape with setmaxnreg (made by
+   editing a copy of this tree's source), built as the port builds them;
+   ptxas's registers and spills, and from the SASS the setmaxnreg requests
+   and the highest register and the spill instructions past the
+   consumers' request.
 1. K4's no-grad forward: the parent tree's library and this tree's, both
    called through their C entry point with the same arguments (this
    tree's with no log-sum-exp), at llama3.2-3b's prefill shape (B=1,
@@ -15,12 +21,15 @@
    turns parent, this, this, parent; then this tree's wrapper
    (``flash_attention``), whose host work ``chip_smoke.py``'s flash.time
    includes (each time starts from an idle card).
-2. K4b at llama3.2-3b's training shape (B=1, S=4,096, 24/8, D=128, bf16):
-   its launches' device times under ``torch.profiler`` (delta, the dV and
-   dK passes, dQ); then the two dK/dV passes against one launch that takes
-   both passes' CTAs (``merged``, made by editing a copy of this tree's
-   source), in turns, each with its relative L2 error against the chunked
-   vjp.
+2. K4b at llama3.2-3b's training shape (B=1, S=4,096, 24/8, D=128, bf16),
+   the parent tree's kernels against this tree's, both through this
+   tree's wrapper (``flash_attention_bwd``) on the same inputs: each one's
+   relative L2 error against the chunked vjp, whether two calls are
+   bitwise equal, its launches' device times under ``torch.profiler``;
+   then CUDA-event times (median, min and max of 30 calls) in turns
+   parent, this, this, parent, twice; then design (b) of its dQ (summed
+   in the dK/dV kernel in kv tile order, made by editing a copy of this
+   tree's source, measured and not kept) in turns this, b, b, this.
 3. ``flash_attention`` as ``chip_smoke.py``'s flash.time calls it, each
    tree's wrapper and library in a fresh process of its own, in turns
    parent, this, this, parent, at the two shapes of 1.
@@ -139,32 +148,375 @@ def k4_parent_vs_this(parent_source: Path) -> None:
                                            bitwise=bitwise, ms=turns)), flush=True)
 
 
-MERGE_EDITS = (
-    ("template <int DP, bool DK>\n__global__ void __launch_bounds__(kBwdThreads, 1)\n"
-     "flash_bwd_dkdv_bf16(",
-     "template <int DP>\n__global__ void __launch_bounds__(kBwdThreads, 1)\n"
-     "flash_bwd_dkdv_bf16("),
-    ("  const int kt = (int)(blockIdx.x / (unsigned)BH);\n"
-     "  const int bh = (int)(blockIdx.x % (unsigned)BH);\n"
-     "  const int b = bh / p.Hkv, hk = bh % p.Hkv;",
-     "  const bool DK = blockIdx.x & 1;\n"
-     "  const int kt = (int)((blockIdx.x >> 1) / (unsigned)BH);\n"
-     "  const int bh = (int)((blockIdx.x >> 1) % (unsigned)BH);\n"
-     "  const int b = bh / p.Hkv, hk = bh % p.Hkv;"),
-    ("template <int DP, bool DK>\nint launch_dkdv(", "template <int DP>\nint launch_dkdv("),
-    ("flash_bwd_dkdv_bf16<DP, DK>, cudaFuncAttributeMaxDynamicSharedMemorySize",
-     "flash_bwd_dkdv_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize"),
-    ("flash_bwd_dkdv_bf16<DP, DK><<<ctas,", "flash_bwd_dkdv_bf16<DP><<<2 * ctas,"),
-    ("  err = launch_dkdv<DP, false>(tq64, tdo64, tk, tv, bp, (unsigned)dkdv_ctas, stream);\n"
-     "  if (!err) err = launch_dkdv<DP, true>(tq64, tdo64, tk, tv, bp, (unsigned)dkdv_ctas, "
-     "stream);",
-     "  err = launch_dkdv<DP>(tq64, tdo64, tk, tv, bp, (unsigned)dkdv_ctas, stream);"),
+def one_pass_384(text: str) -> str:
+    """This tree's K4b source with its dK/dV kernel in the 384-thread shape
+    instead: a producer warpgroup (setmaxnreg.dec 24, its first thread
+    walking the steps) and the same two consumer warpgroups (setmaxnreg.inc
+    240), the one pass unchanged."""
+    head = "    if (threadIdx.x == 0) {\n      while (pw.hl < g && issued < S + step) {\n"
+    start = text.index(head)
+    end = text.index("    const int q0 = w.qb * kBQ + w.half * kQStep;", start)
+    body = text[start + len(head):end]
+    assert body.endswith("      }\n    }\n")
+    producer = "      while (pw.hl < g) {\n" + body[:-len("    }\n")]
+    text = text[:start] + text[end:]
+    edits = (
+        ("__global__ void __launch_bounds__(kBwdThreads, 1)\nflash_bwd_dkdv_bf16(",
+         "__global__ void __launch_bounds__(384, 1)\nflash_bwd_dkdv_bf16("),
+        ("  if (threadIdx.x == 0) {\n    mbar_expect_tx(kv_full, 2 * L::kKVBytes);\n",
+         "  if (threadIdx.x < 128) {\n"
+         "  asm volatile(\"setmaxnreg.dec.sync.aligned.u32 24;\\n\" ::: \"memory\");\n"
+         "  if (threadIdx.x == 0) {\n    mbar_expect_tx(kv_full, 2 * L::kKVBytes);\n"),
+        ("      tma_load_4d(base + L::kKVBytes + c * kBox128, &tv, kv_full, c * kBoxCols, hk, k0, b);\n"
+         "    }\n  }\n\n  const int cw = threadIdx.x >> 7;\n",
+         "      tma_load_4d(base + L::kKVBytes + c * kBox128, &tv, kv_full, c * kBoxCols, hk, k0, b);\n"
+         "    }\n" + producer + "  }\n  } else {\n"
+         "  asm volatile(\"setmaxnreg.inc.sync.aligned.u32 240;\\n\" ::: \"memory\");\n"
+         "  const int cw = (threadIdx.x >> 7) - 1;\n"),
+        ("          pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);\n    }\n  }\n}\n",
+         "          pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);\n    }\n  }\n  }\n}\n"),
+        ("flash_bwd_dkdv_bf16<DP><<<(unsigned)dkdv_ctas, kBwdThreads,",
+         "flash_bwd_dkdv_bf16<DP><<<(unsigned)dkdv_ctas, 384,"),
+    )
+    for old, new in edits:
+        assert text.count(old) == 1, old
+        text = text.replace(old, new)
+    return text
+
+
+def register_report(out_dir: Path) -> None:
+    """The register question: this tree's one-pass dK/dV kernel (256
+    threads, no setmaxnreg) and the same pass in the 384-thread shape
+    (``one_pass_384``), each built as ``load_library`` builds it.  Per bf16
+    kernel: ptxas's registers and spill bytes; from the SASS the setmaxnreg
+    requests (USETMAXREG), and over the code after the consumers' request
+    (the whole kernel without one) the highest register touched and the
+    local-memory spill instructions (STL, LDL)."""
+    from repro_torch.kernels import nvcc_build
+    from repro_torch.kernels.flash_attention import ops
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    variant = out_dir / "flash_attention_bwd_384.cu"
+    variant.write_text(one_pass_384(ops.BWD_SOURCE.read_text()))
+    report = {}
+    for name, source in (("this_256", ops.BWD_SOURCE), ("one_pass_384", variant)):
+        library = out_dir / f"{name}.so"
+        ptxas = nvcc_build(source, library)
+        kernels, notes, current = {}, {}, None
+        for line in ptxas.splitlines():
+            m = re.search(r"\((C75\d+)\).*function '(\S+)'", line)
+            if m:  # ptxas's performance notes name their function
+                notes.setdefault(m.group(2), []).append(m.group(1))
+                continue
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                current = m.group(1) if "bf16" in m.group(1) else None
+                if current:
+                    kernels[current] = {}
+            elif current:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if m:
+                    kernels[current]["spill_bytes"] = [int(m.group(1)), int(m.group(2))]
+                m = re.search(r"Used (\d+) registers", line)
+                if m:
+                    kernels[current]["ptxas_registers"] = int(m.group(1))
+        for kernel in kernels:
+            kernels[kernel]["ptxas_notes"] = notes.get(kernel, [])
+        sass = subprocess.run([shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump",
+                               "-sass", str(library)], capture_output=True, text=True,
+                              check=True).stdout
+        for block in re.split(r"\n\s*Function : ", sass)[1:]:
+            fname = block.split("\n", 1)[0].strip()
+            if fname not in kernels:
+                continue
+            ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", block)
+            up = [i for i, s in enumerate(ins) if "USETMAXREG.TRY_ALLOC" in s]
+            down = [i for i, s in enumerate(ins) if "USETMAXREG.DEALLOC" in s]
+            lo = up[0] if up else 0
+            hi = down[0] if down and down[0] > lo else len(ins)
+            region = ins[lo:hi]
+            regs = [int(r) for s in region for r in re.findall(r"\bR(\d+)\b", s)]
+            kernels[fname].update(
+                usetmaxreg=[s.strip() for s in ins if "USETMAXREG" in s],
+                consumer_max_register=max(regs) if regs else None,
+                consumer_stl=sum(bool(re.search(r"\bSTL\b", s)) for s in region),
+                consumer_ldl=sum(bool(re.search(r"\bLDL\b", s)) for s in region))
+        report[name] = {re.search(r"flash_bwd_\w+?_bf16I\w*?E", k).group(0): v
+                        for k, v in kernels.items()}
+    print("[k4b.registers] " + json.dumps(report), flush=True)
+
+
+# Design (b) of K4b's dQ, derived from this tree's source: no dQ kernel;
+# the dK/dV kernel writes each step's dS^T (bf16) to shared memory, forms
+# the step's dQ rows (dS K, wgmma with both operands MN-major) and adds
+# them into an f32 workspace [B, Hq, Sq_pad, D] in kv tile order (a
+# counter per (b, h, 64-row step, column half), waited on with an acquire
+# load, raised with a release add); a small kernel rounds the workspace to
+# bf16.  The workspace and counters follow the rows scratch, zeroed by
+# cudaMemsetAsync.  Measured, not kept: the design (a) kernels are faster.
+DESIGN_B_EDITS = (
+    ("""  float* lse2;
+  int Sq_pad;
+};""",
+     """  float* lse2;
+  int Sq_pad;
+  // bf16: dQ before the scale, f32 [B, Hq, Sq_pad, D], zeroed, summed by
+  // the dK/dV kernel in kv tile order; a counter per (b, h, 64-row q step,
+  // column half) of the additions made so far.
+  float* dq_acc;
+  int* dq_sem;
+};"""),
+    ("""  static constexpr int kRowsOffset = kStageOffset + 2 * kDkdvStages * kStepBytes;
+  static constexpr int kBarOffset = kRowsOffset + kDkdvStages * 2 * kRowBytes;
+  static constexpr int kBytes = kBarOffset + 8 * (1 + 2 * kDkdvStages) + 1024;
+};""",
+     """  static constexpr int kDsBytes = kBKV * kQStep * 2;
+  static constexpr int kDsOffset = kStageOffset + 2 * kDkdvStages * kStepBytes;  // 1024-aligned
+  static constexpr int kRowsOffset = kDsOffset + 2 * kDsBytes;
+  static constexpr int kBarOffset = kRowsOffset + kDkdvStages * 2 * kRowBytes;
+  static constexpr int kBytes = kBarOffset + 8 * (1 + 2 * kDkdvStages) + 1024;
+};
+
+// d (+)= A B over 64 x 64 x 16, A and B both MN-major in shared memory
+// (both transpose flags set).
+__device__ __forceinline__ void wgmma_tt_n64(float (&d)[32], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\\n.reg .pred p;\\nsetp.ne.b32 p, %34, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
+      ", %32, %33, p, 1, 1, 1, 1;\\n}\\n"
+      : WG_F32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void add_release(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// The kv tiles before `kt` that the plan keeps against q block `qb`: the
+// additions to its rows of dq_acc that come before this tile's.
+__device__ __forceinline__ int tiles_before(const BwdParams& p, int kt, int qb) {
+  const int qmin = p.q_bounds[2 * qb], qmax = p.q_bounds[2 * qb + 1];
+  int n = 0;
+  for (int t = 0; t < kt; ++t)
+    n += tile_kind(p.kv_bounds[2 * t], p.kv_bounds[2 * t + 1], true, qmin, qmax, p.window) != 0;
+  return n;
+}"""),
+    ("""  const uint32_t kv_full = base + L::kBarOffset;
+  const uint32_t full0 = kv_full + 8, empty0 = kv_full + 8 * (1 + S);
+
+  const int BH = p.B * p.Hkv;
+  const int kt = (int)(blockIdx.x / (unsigned)BH);  // kv tile 0 first: the most q blocks""",
+     """  const uint32_t kv_full = base + L::kBarOffset;
+  const uint32_t full0 = kv_full + 8, empty0 = kv_full + 8 * (1 + S);
+  uint8_t* const ds_buf = smem_raw + (base - raw) + L::kDsOffset;
+
+  const int BH = p.B * p.Hkv;
+  const int kt = (int)(blockIdx.x / (unsigned)BH);  // kv tile 0 first: the most q blocks"""),
+    ("""  mbar_wait(kv_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int step = 0; w.hl < g; ++step) {""",
+     """  mbar_wait(kv_full, 0);
+  int stage = 0, before = 0;
+  uint32_t phase = 0;
+  // dQ: for D <= 64 warpgroup 0 takes all columns.
+  const bool dq_wg = DP == 128 || cw == 0;
+  float dqp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dqp[i] = 0.f;
+  for (int step = 0; w.hl < g; ++step) {"""),
+    ("""    const int q0 = w.qb * kBQ + w.half * kQStep;
+    const bool masked = w.kind != 2;""",
+     """    const int q0 = w.qb * kBQ + w.half * kQStep;
+    const bool masked = w.kind != 2;
+    if (w.half == 0) before = tiles_before(p, kt, w.qb);"""),
+    ("""    wgmma_rs_k64(dv, pa, do_addr, kBox64);
+    wgmma_rs_k64(dk, da, q_addr, kBox64);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(dv);
+    reg_fence(dk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * stage);""",
+     """    wgmma_rs_k64(dv, pa, do_addr, kBox64);
+    wgmma_rs_k64(dk, da, q_addr, kBox64);
+    wgmma_commit();
+    // dS^T (bf16) into this step's buffer, rows = the tile's 128 keys, 64
+    // q columns a 128-byte row, 128-byte swizzle (chunk j at j ^ (row & 7)).
+    uint8_t* const ds = ds_buf + (step & 1) * L::kDsBytes;
+    const uint32_t ds_addr = smem_u32(ds);
+    {
+      const int R0 = 64 * cw + 16 * warp + g8, R1 = R0 + 8;
+#pragma unroll
+      for (int kk = 0; kk < kQStep / 16; ++kk) {
+        const int j0 = 2 * kk, j1 = 2 * kk + 1;
+        *reinterpret_cast<uint32_t*>(ds + R0 * 128 + ((j0 ^ (R0 & 7)) << 4) + 4 * t4) = da[kk][0];
+        *reinterpret_cast<uint32_t*>(ds + R1 * 128 + ((j0 ^ (R1 & 7)) << 4) + 4 * t4) = da[kk][1];
+        *reinterpret_cast<uint32_t*>(ds + R0 * 128 + ((j1 ^ (R0 & 7)) << 4) + 4 * t4) = da[kk][2];
+        *reinterpret_cast<uint32_t*>(ds + R1 * 128 + ((j1 ^ (R1 & 7)) << 4) + 4 * t4) = da[kk][3];
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");
+    named_barrier(1, kBwdThreads);
+    // dQ (64 q rows x 64 columns of this warpgroup) = dS K over the 128
+    // keys: dS^T read MN-major as A, K MN-major as B (box cw).
+    if (dq_wg) {
+      reg_fence(dqp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBKV / 16; ++kk)
+        wgmma_tt_n64(dqp, smem_desc(ds_addr + kk * 2048, kBox64, 1024),
+                     smem_desc(base + cw * kBox128 + kk * 2048, kBox128, 1024), kk > 0);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    reg_fence(dv);
+    reg_fence(dk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+    if (dq_wg) {
+      reg_fence(dqp);
+      const int h = hk * g + w.hl;
+      int* sem = p.dq_sem + (pad_row_base(p, b, h) / kQStep + q0 / kQStep) * 2 + cw;
+      if (tid == 0) {
+        long long start = -1;
+        while (load_acquire(sem) < before) {
+          const long long now = clock64();
+          if (start < 0) start = now;
+          if (now - start > 20000000000LL) __trap();
+        }
+      }
+      named_barrier(2 + cw, 128);
+      float* acc = p.dq_acc + (pad_row_base(p, b, h) + q0 + 16 * warp + g8) * p.D + 64 * cw;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 8 * j + 2 * t4;
+        if (64 * cw + col < p.D) {
+          atomicAdd(acc + col, dqp[4 * j]);
+          atomicAdd(acc + col + 1, dqp[4 * j + 1]);
+          atomicAdd(acc + 8 * p.D + col, dqp[4 * j + 2]);
+          atomicAdd(acc + 8 * p.D + col + 1, dqp[4 * j + 3]);
+        }
+      }
+      named_barrier(2 + cw, 128);
+      if (tid == 0) add_release(sem, 1);
+    }"""),
+    ("""// -------------------------------- f32 -----------------------------------""",
+     """// dq = bf16(dq_acc * scale): a warp a row (b, s, h), s < Sq.
+__global__ void __launch_bounds__(kDeltaThreads)
+flash_bwd_dq_round(const BwdParams p) {
+  const long long row = (long long)blockIdx.x * (kDeltaThreads / 32) + (threadIdx.x >> 5);
+  if (row >= (long long)p.B * p.Sq * p.Hq) return;
+  const int lane = threadIdx.x & 31;
+  const int h = (int)(row % p.Hq);
+  const int s = (int)((row / p.Hq) % p.Sq);
+  const int b = (int)(row / ((long long)p.Hq * p.Sq));
+  const float* src = p.dq_acc + (pad_row_base(p, b, h) + s) * p.D;
+  __nv_bfloat16* dst = (__nv_bfloat16*)p.dq + (long long)b * p.dq_sb + (long long)s * p.dq_ss +
+                       (long long)h * p.dq_sh;
+  for (int d = lane; d < p.D; d += 32) dst[d] = __float2bfloat16(src[d] * p.scale);
+}
+
+// -------------------------------- f32 -----------------------------------"""),
+    ("""  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(flash_bwd_dq_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           DqSmem<DP>::kBytes);
+  if (e != cudaSuccess) return (int)e;
+  flash_bwd_dq_bf16<DP><<<(unsigned)dq_ctas, kBwdThreads, DqSmem<DP>::kBytes, stream>>>(
+      tq128, tdo128, tk, tv, bp);
+  return (int)cudaGetLastError();""",
+     """  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long rows = (long long)p.B * p.Sq * p.Hq;
+  flash_bwd_dq_round<<<(unsigned)((rows + kDeltaThreads / 32 - 1) / (kDeltaThreads / 32)),
+                       kDeltaThreads, 0, stream>>>(bp);
+  return (int)cudaGetLastError();"""),
+    ("""  err = launch_plan(p.qpos, p.kpos, p.Sq, p.Sk, bounds, stream);
+  if (!err) err = launch_delta<true>(p, stream);""",
+     """  err = launch_plan(p.qpos, p.kpos, p.Sq, p.Sk, bounds, stream);
+  if (!err) err = launch_delta<true>(p, stream);
+  if (!err)
+    err = (int)cudaMemsetAsync(p.dq_acc, 0,
+                               4 * (size_t)p.B * p.Hq * p.Sq_pad * p.D +
+                                   4 * (size_t)p.B * p.Hq * (p.Sq_pad / kQStep) * 2,
+                               stream);"""),
+    ("""    p.Sq_pad = n_tiles(Sq) * kBQ;
+    p.lse2 = (float*)delta;
+    p.delta = p.lse2 + (long long)B * Hq * p.Sq_pad;""",
+     """    p.Sq_pad = n_tiles(Sq) * kBQ;
+    p.lse2 = (float*)delta;
+    p.delta = p.lse2 + (long long)B * Hq * p.Sq_pad;
+    p.dq_acc = p.delta + (long long)B * Hq * p.Sq_pad;
+    p.dq_sem = (int*)(p.dq_acc + (long long)B * Hq * p.Sq_pad * D);"""),
 )
 
 
-def k4b_kernels(out_dir: Path) -> None:
+def design_b_scratch(b: int, sq: int, hq: int, dtype) -> int:
+    """The rows scratch design (b) needs at D <= 128: lse2 and delta, the
+    f32 workspace and the counters."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+
+    if dtype != torch.bfloat16:
+        return ops.bwd_rows_scratch(b, sq, hq, dtype)
+    sq_pad = -(-sq // ops.Q_BLOCK_BF16) * ops.Q_BLOCK_BF16
+    return 2 * b * hq * sq_pad + b * hq * sq_pad * 128 + b * hq * (sq_pad // 64) * 2
+
+
+def time_spread(fn, n: int = 30) -> dict:
+    """CUDA-event ms of ``n`` calls after 3 warm-ups: median, min, max."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    times.sort()
+    return dict(median=times[n // 2], min=times[0], max=times[-1])
+
+
+def launch_split(fn, n: int = 10) -> dict:
+    """{kernel: device ms a call} of ``fn``'s launches under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+        m = re.search(r"(flash_\w+|Memset)(<[^>(]*>)?", e.key)
+        if t and m:
+            split[m.group(1) + (m.group(2) or "")] = t / n / 1e3
+    return split
+
+
+def k4b_parent_vs_this(parent_source: Path, out_dir: Path) -> None:
+    import torch
 
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.models.attention import chunked_vjp
@@ -183,40 +535,43 @@ def k4b_kernels(out_dir: Path) -> None:
         return ops.flash_attention_bwd(q, k, v, out, dout, lse, q_positions=pos,
                                        kv_positions=pos)
 
-    bwd()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            bwd()
-        torch.cuda.synchronize()
-    split = {}
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-        m = re.search(r"(flash_\w+)(<[^>(]*>)?", e.key)
-        if t and m:
-            split[m.group(1) + (m.group(2) or "")] = t / e.count / 1e3
-    print("[k4b.split] " + json.dumps(dict(ms_per_launch=split)), flush=True)
-
     text = ops.BWD_SOURCE.read_text()
-    for old, new in MERGE_EDITS:
+    for old, new in DESIGN_B_EDITS:
         assert text.count(old) == 1, old
         text = text.replace(old, new)
     out_dir.mkdir(parents=True, exist_ok=True)
-    merged = out_dir / "flash_attention_bwd_merged.cu"
-    merged.write_text(text)
-    sources = {"two_launches": ops.BWD_SOURCE, "merged": merged}
-    turns = []
-    for name in ("two_launches", "merged", "merged", "two_launches"):
+    sources = {"parent": parent_source, "this": ops.BWD_SOURCE,
+               "design_b": out_dir / "flash_attention_bwd_design_b.cu"}
+    sources["design_b"].write_text(text)
+    plain_scratch = ops.bwd_rows_scratch
+
+    def use(name):
+        # The parent's kernels read the first B * Hq * Sq values of the rows
+        # scratch: this tree's wrapper serves both.
         ops.BWD_SOURCE = sources[name]
         ops._bwd_library.cache_clear()
-        ms = time_ms(bwd)
-        got = bwd()
+        ops.bwd_rows_scratch = design_b_scratch if name == "design_b" else plain_scratch
+
+    checks = {}
+    for name in sources:
+        use(name)
+        got, again = bwd(), bwd()
         num = sum((a.double() - w.double()).square().sum() for a, w in zip(got, want))
         rel = (num / sum(w.double().square().sum() for w in want)).sqrt().item()
-        turns.append((name, ms, rel))
-    ops.BWD_SOURCE = sources["two_launches"]
-    ops._bwd_library.cache_clear()
-    print("[k4b.ab] " + json.dumps(dict(ms_rel_l2=turns)), flush=True)
+        checks[name] = dict(rel_l2_vs_chunked_vjp=rel,
+                            rerun_bitwise=all(torch.equal(a, b) for a, b in zip(got, again)),
+                            device_ms_by_launch=launch_split(bwd))
+    print("[k4b.check] " + json.dumps(checks), flush=True)
+    turns = []
+    for name in ("parent", "this", "this", "parent") * 2:
+        use(name)
+        turns.append((name, time_spread(bwd)))
+    for name in ("this", "design_b", "design_b", "this"):
+        use(name)
+        turns.append((name, time_spread(bwd)))
+    use("this")
+    medians = {name: sorted(t["median"] for n, t in turns if n == name) for name in sources}
+    print("[k4b.ab] " + json.dumps(dict(turns=turns, medians=medians)), flush=True)
 
 
 WRAPPER_TIMING = r"""
@@ -277,8 +632,9 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
+    register_report(args.out)
     k4_parent_vs_this(args.parent / FA_CSRC / "flash_attention.cu")
-    k4b_kernels(args.out)
+    k4b_parent_vs_this(args.parent / FA_CSRC / "flash_attention_bwd.cu", args.out)
     wrapper_turns(args.parent.resolve())
     return 0
 

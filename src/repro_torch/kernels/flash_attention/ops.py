@@ -96,6 +96,17 @@ def bwd_bf16_smem_bytes(d: int) -> dict:
     return {"dkdv": lib.flash_attention_bwd_smem(d, 0), "dq": lib.flash_attention_bwd_smem(d, 1)}
 
 
+def bwd_rows_scratch(b: int, sq: int, hq: int, dtype: torch.dtype) -> int:
+    """Float32 values of K4b's per-row scratch: delta, ``[B, Hq, Sq]``, for
+    float32; for bfloat16 each row's log-sum-exp times log2 e and its delta,
+    each ``[B, Hq, Sq']`` with Sq' = Sq rounded up to the 128-row q block,
+    the rows past Sq filled (+inf, 0) by the pre-pass so that the dK/dV
+    kernel's 1-D bulk copies of 64 rows never read past an array."""
+    if dtype == torch.bfloat16:
+        return 2 * b * hq * _n_tiles(sq) * Q_BLOCK_BF16
+    return b * hq * sq
+
+
 def tile_bounds(q_positions: torch.Tensor, kv_positions: torch.Tensor) -> torch.Tensor:
     """The bfloat16 route's tile plan on its own: int32 (min, max) of each
     128-key tile's positions, then of each 128-row q block's (the kernel's
@@ -314,13 +325,14 @@ def flash_attention_bwd(
     qpos, kpos = _positions(q_positions, kv_positions)
     sk, hkv, d = k.shape[1], k.shape[2], k.shape[3]
     bounds = _plan_scratch(q, sk)
-    delta = torch.empty(b * hq * sq, dtype=torch.float32, device=q.device)
+    rows = torch.empty(bwd_rows_scratch(b, sq, hq, q.dtype), dtype=torch.float32,
+                       device=q.device)
     strides = [s for t in (q, k, v, out, dout, dq, dk, dv) for s in t.stride()[:3]]
     with torch.cuda.device(q.device):
         err = _bwd_library().flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), qpos.data_ptr(),
-            kpos.data_ptr(), _ptr(bounds), delta.data_ptr(), b, sq, sk, hq, hkv, d, *strides,
+            kpos.data_ptr(), _ptr(bounds), rows.data_ptr(), b, sq, sk, hq, hkv, d, *strides,
             0 if window is None else int(window), 1.0 / (d ** 0.5), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )

@@ -387,6 +387,71 @@ def test_flash_bwd_kernel_route_raises_and_never_falls_back(fault, monkeypatch):
     assert ops.flash_attention_bwd.launches == before
 
 
+@pytest.mark.parametrize("b,sq,hq,dtype", [
+    (1, 4096, 24, "bfloat16"), (1, 1000, 24, "bfloat16"), (2, 1, 6, "bfloat16"),
+    (1, 129, 4, "bfloat16"), (2, 300, 4, "float32"), (1, 1000, 24, "float32"),
+])
+def test_flash_bwd_rows_scratch_covers_every_step(b, sq, hq, dtype):
+    """K4b's per-row scratch (``ops.bwd_rows_scratch``): float32 delta
+    ``[B, Hq, Sq]`` for float32; for bfloat16 lse2 and delta, each ``[B, Hq,
+    Sq']`` with Sq' the rows rounded up to the 128-row q block, so that every
+    64-row step the dK/dV kernel copies (q0 = 0, 64, ... below Sq) lies
+    inside its row and every row starts 256 bytes aligned (the 1-D bulk copy
+    needs 16)."""
+    from repro_torch.kernels.flash_attention import ops
+
+    n = ops.bwd_rows_scratch(b, sq, hq, getattr(torch, dtype))
+    if dtype == "float32":
+        assert n == b * hq * sq
+        return
+    sq_pad = n // (2 * b * hq)
+    assert n == 2 * b * hq * sq_pad
+    assert sq_pad % ops.Q_BLOCK_BF16 == 0 and sq <= sq_pad < sq + ops.Q_BLOCK_BF16
+    assert all(q0 + 64 <= sq_pad for q0 in range(0, sq, 64))
+    assert (4 * sq_pad) % 256 == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_wrapper_passes_the_rows_scratch(dtype, monkeypatch):
+    """On the kernel route (forced here on CPU tensors, the library a stub)
+    the wrapper hands the C entry a float32 scratch of exactly
+    ``bwd_rows_scratch`` values as its ``delta`` argument, and counts one
+    launch."""
+    import types
+
+    from repro_torch.kernels.flash_attention import ops
+
+    made = []
+    real_empty = torch.empty
+
+    def empty(*args, **kwargs):
+        out = real_empty(*args, **kwargs)
+        made.append(out)
+        return out
+
+    calls = []
+    monkeypatch.setattr(torch, "empty", empty)
+    monkeypatch.setattr(ops, "use_kernel", lambda t: True)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    lib = types.SimpleNamespace(flash_attention_bwd=lambda *args: calls.append(args) or 0)
+    monkeypatch.setattr(ops, "_bwd_library", lambda: lib)
+    rng = np.random.default_rng(0)
+    b, s, hq, hkv, d = 2, 300, 4, 2, 16
+    tdt = getattr(torch, dtype)
+    q, out, dout = (torch.from_numpy(_f32(rng, (b, s, hq, d))).to(tdt) for _ in range(3))
+    k, v = (torch.from_numpy(_f32(rng, (b, s, hkv, d))).to(tdt) for _ in range(2))
+    lse = torch.zeros(b, hq, s)
+    pos = torch.arange(s, dtype=torch.int32)
+    before = ops.flash_attention_bwd.launches
+    ops.flash_attention_bwd(q, k, v, out, dout, lse, q_positions=pos, kv_positions=pos)
+    assert ops.flash_attention_bwd.launches == before + 1 and len(calls) == 1
+    rows = [m for m in made if m.data_ptr() == calls[0][12]]
+    assert len(rows) == 1 and rows[0].dtype == torch.float32
+    assert rows[0].numel() == ops.bwd_rows_scratch(b, s, hq, tdt)
+
+
 @pytest.mark.parametrize("which", ["q", "k", "v"])
 def test_flash_refuses_autograd_like_the_reference(which):
     """K4 has no backward: with grad on and q, k or v requiring grad,

@@ -791,13 +791,15 @@ def _trainable_check(q, k, v, dout, qpos, kpos, window, chunks=(64, 128)):
 
 
 # (B, S, Hq, Hkv, D, window, q_from, stride of the positions): S in {1,
-# 129, 300, 1024}, heads 6/2, 4/4 and 8/1, D in {64, 72, 128}, windows,
-# queries that are the tail of the keys, positions that are not an arange.
+# 129, 300, 1000, 1024}, heads 6/2, 4/4, 8/1 and the training layout's
+# 24/8, D in {64, 72, 128}, windows, queries that are the tail of the keys,
+# positions that are not an arange.
 BWD_CASES = [
     (1, 1, 6, 2, 64, None, 0, 1), (1, 129, 6, 2, 64, None, 0, 1),
     (2, 300, 4, 4, 128, None, 0, 1), (1, 300, 8, 1, 72, 64, 0, 1),
     (1, 1024, 6, 2, 128, None, 0, 1), (1, 1024, 8, 1, 64, 64, 300, 1),
     (1, 129, 4, 4, 72, 64, 1, 1), (1, 300, 6, 2, 128, 200, 0, 3),
+    (1, 1000, 24, 8, 128, None, 0, 1),
 ]
 
 
@@ -810,6 +812,27 @@ def test_flash_bwd_kernel_matches_plain(cuda, b, s, hq, hkv, d, window, q_from, 
     k, v = (torch.randn(b, s, hkv, d, generator=g, device=cuda).to(dtype) for _ in range(2))
     kpos = stride * torch.arange(s, dtype=torch.int32, device=cuda) + 7
     _trainable_check(q, k, v, dout, kpos[q_from:], kpos, window)
+
+
+@pytest.mark.parametrize("window", [None, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_is_bitwise_deterministic(cuda, window, dtype):
+    """Two K4b calls on the same inputs give bitwise-equal dq, dk and dv
+    (the bf16 dQ is a kernel of its own, no atomics), causal and windowed,
+    at the training layout (24/8 heads, D=128) over 1,000 rows."""
+    from repro_torch.kernels.flash_attention import ops
+
+    b, s, hq, hkv, d = 1, 1000, 24, 8, 128
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, dout = (torch.randn(b, s, hq, d, generator=g, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn(b, s, hkv, d, generator=g, device=cuda).to(dtype) for _ in range(2))
+    pos = torch.arange(s, dtype=torch.int32, device=cuda)
+    out, lse = ops._kernel_forward(q, k, v, pos, pos, window, with_lse=True)
+    first, second = (ops.flash_attention_bwd(q, k, v, out, dout, lse, q_positions=pos,
+                                             kv_positions=pos, window=window)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 def test_flash_bwd_kernel_reads_strided_views(cuda):
