@@ -120,6 +120,10 @@ from repro_torch.configs.densest_mapreduce import chung_lu_args  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 F32_FLOPS = 67e12  # outside the tensor cores
+# Dense TF32 on the tensor cores.  K4's and K4b's f32 kernels take each
+# product as three TF32 products (split TF32), so their other bound is 3x
+# the FLOPs at this rate; an f32 bound_ms is the lower of the two.
+TF32_FLOPS = 495e12
 EPS = 0.5
 # The Chung-Lu draws of configs/densest_mapreduce.py's flickr_sm and
 # livejournal_md (their node counts; the average degree that draws their
@@ -234,14 +238,16 @@ def phase_build() -> None:
         for name, props in _ptxas_kernels(ptxas).items():
             log(f"build.{label}", kernel=name, **props)
             # K4b's bf16 kernels keep both accumulators in registers (one
-            # dK/dV pass): a spill there is a regression.
-            if label == "k4b" and "bf16" in name and (
+            # dK/dV pass), and every f32 (split-TF32) kernel of K4 and K4b
+            # its accumulators and fragments: a spill there is a regression.
+            if (("bf16" in name and label == "k4b") or "f32" in name) and (
                     props.get("spill_stores") or props.get("spill_loads")):
-                raise AssertionError(f"K4b's {name} spills: {props}")
+                raise AssertionError(f"{label}'s {name} spills: {props}")
         found = sass_counts(library_path(source), r"\b(?:HGMMA|UTMALDG|MUFU\.EX2|HMMA)\b")
         counts = {op: found.get(op, 0) for op in ("HGMMA", "UTMALDG", "MUFU.EX2", "HMMA")}
         log(f"build.{label}", sass_instructions=counts,
-            bf16_dynamic_smem_bytes={dp: smem(dp) for dp in (64, 128)})
+            bf16_dynamic_smem_bytes={dp: smem(dp) for dp in (64, 128)},
+            f32_dynamic_smem_bytes={dp: fa_ops.f32_smem_bytes(dp) for dp in (32, 64, 128)})
         if not (counts["HGMMA"] and counts["UTMALDG"]):
             raise AssertionError(f"{label}'s library has no wgmma or no TMA load: {counts}")
     # K1's and K2's shared-memory atomics (a compare-and-swap loop shows as
@@ -2191,8 +2197,11 @@ def phase_golden_objectives() -> None:
 # 8,192-token prompt, 24/8 heads, D=128, bf16), a ragged length, mixtral's
 # window, kv positions that are not an arange (a stride of 3, with a
 # window of 3 * 1,000 positions), D=64 at a length that is not a multiple
-# of the 128-key tile, and path 10's (mixtral: 32/8 heads, window 4,096).  (B, S, Hq, Hkv, D, window, dtype, stride
-# of the positions)
+# of the 128-key tile, and path 10's (mixtral: 32/8 heads, window 4,096);
+# then f32 at full width (the trainable route's 4,096 causal, a 3,000
+# window over positions of stride 3, and 8,000 rows for the ragged edge of
+# the 64-row blocks and 32-key tiles).  (B, S, Hq, Hkv, D, window, dtype,
+# stride of the positions)
 FLASH_CASES = [
     (2, 256, 4, 4, 64, None, "float32", 1), (1, 256, 8, 2, 64, None, "float32", 1),
     (2, 384, 4, 2, 32, 128, "float32", 1), (1, 300, 2, 1, 64, None, "float32", 1),
@@ -2200,6 +2209,8 @@ FLASH_CASES = [
     (1, 8192, 24, 8, 128, None, "bfloat16", 1), (1, 8000, 24, 8, 128, None, "bfloat16", 1),
     (1, 8192, 24, 8, 128, 4096, "bfloat16", 1), (1, 4096, 24, 8, 128, 3000, "bfloat16", 3),
     (2, 1000, 16, 4, 64, None, "bfloat16", 1), (1, 8192, 32, 8, 128, 4096, "bfloat16", 1),
+    (1, 4096, 24, 8, 128, None, "float32", 1), (1, 4096, 24, 8, 128, 3000, "float32", 3),
+    (1, 8000, 24, 8, 128, None, "float32", 1),
 ]
 # K4 against its plain version, two limits.  Elementwise, rtol = atol =
 # the reference tests' own (2e-5 f32, 2e-2 bf16): at the main shape a late
@@ -2228,19 +2239,33 @@ def flash_pairs(q_positions, kv_positions, window) -> int:
     return int(n.sum().item())
 
 
+def f32_bounds_ms(flops: float) -> dict:
+    """The two operation bounds of f32 work: ``flops`` at the f32 FMA rate
+    outside the tensor cores, and 3 x ``flops`` (split TF32) at the TF32
+    tensor-core rate."""
+    return {"simt_ms": flops / F32_FLOPS * 1e3, "tf32_split_ms": 3 * flops / TF32_FLOPS * 1e3}
+
+
+def ops_bound_ms(flops: float, dtype) -> float:
+    """``flops`` at the dtype's peak: bf16 on the tensor cores; f32 the
+    lower of :func:`f32_bounds_ms`."""
+    import torch
+
+    if dtype == torch.bfloat16:
+        return flops / BF16_FLOPS * 1e3
+    return min(f32_bounds_ms(flops).values())
+
+
 def flash_bound_ms(q, k, pairs: int) -> tuple:
     """Least time on the card for one K4 call: the larger of its FLOPs
     (q.k and p.v, 2*D each per allowed pair and query head) over the
-    dtype's peak and its bytes (q, k, v read once, the output written
-    once, the positions) over HBM bandwidth.  Returns (ms, 'operations' or
-    'bytes')."""
-    import torch
-
+    dtype's peak (:func:`ops_bound_ms`) and its bytes (q, k, v read once,
+    the output written once, the positions) over HBM bandwidth.  Returns
+    (ms, 'operations' or 'bytes')."""
     b, sq, hq, d = q.shape
     flops = 4.0 * d * hq * b * pairs
-    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + 4 * (sq + k.shape[1])
-    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms, bytes_ms = ops_bound_ms(flops, q.dtype), nbytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -2360,6 +2385,25 @@ def phase_flash_kernel(smi: str) -> dict:
             plan_ms=plan_ms, vs_sdpa=ms / library_ms)
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
+    # f32 (the split-TF32 kernels) at the trainable route's 4,096 and the
+    # prefill's 8,192, beside SDPA's f32 forward and both f32 bounds.
+    f32_timed = {}
+    for s in (LM_PROMPT // 2, LM_PROMPT):
+        q, k, v, pos = _flash_inputs(1, s, hq, hkv, d, "float32", seed=s)
+        ms = time_ms(lambda: flash_attention(q, k, v, q_positions=pos, kv_positions=pos))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), n=10)
+        pairs = flash_pairs(pos, pos, None)
+        bound_ms, bound_by = flash_bound_ms(q, k, pairs)
+        f32_timed[s] = dict(ms=ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            **f32_bounds_ms(4.0 * d * hq * pairs))
+        log("flash.time", seq=s, dtype="float32", kernel_ms=ms, library_ms_sdpa=library_ms,
+            bound_ms=bound_ms, bound_by=bound_by, bounds_f32=f32_bounds_ms(4.0 * d * hq * pairs),
+            allowed_pairs_per_head=pairs, roofline_share=bound_ms / ms,
+            tflops=4.0 * d * hq * pairs / ms / 1e9, vs_sdpa=ms / library_ms, card=smi)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
     # Path 10's shape: mixtral's 32/8 heads and window of 4,096 at 8,192
     # tokens; the library call is SDPA with the window as a boolean mask.
     window = moe_config().window
@@ -2393,6 +2437,7 @@ def phase_flash_kernel(smi: str) -> dict:
         "bound_ms_32768": timed[4 * LM_PROMPT]["bound_ms"],
         "moe_window": dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                            bound_by=bound_by),
+        "f32": {str(s): rec for s, rec in f32_timed.items()},
     }
 
 
@@ -3074,13 +3119,10 @@ def train_attention_bound_ms(q, k, pairs: int) -> tuple:
     recomputed scores, dV, dP, dQ and dK, 2·D each) at the dtype's peak;
     bytes: q, k, v and dout read, the output and dq, dk, dv written once.
     (ms, 'operations' or 'bytes')."""
-    import torch
-
     b, sq, hq, d = q.shape
     flops = 14.0 * d * hq * b * pairs
-    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() * 2
-    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms, bytes_ms = ops_bound_ms(flops, q.dtype), nbytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -3155,13 +3197,10 @@ def k4b_bound_ms(q, k, pairs: int) -> tuple:
     (s, dp, dv, dq and dk, 2·D each) at the dtype's peak; bytes: q, k, v,
     out, dout and the log-sum-exp read, dq, dk, dv written once.  (ms,
     'operations' or 'bytes')."""
-    import torch
-
     b, sq, hq, d = q.shape
     flops = 10.0 * d * hq * b * pairs
-    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * b * hq * sq
-    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms, bytes_ms = ops_bound_ms(flops, q.dtype), nbytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -3416,10 +3455,17 @@ def phase_train_attention(smi: str) -> dict:
         sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(kept, (qt, kt, vt), dt,
                                                           retain_graph=True), n=n)
         del kept
+        with torch.no_grad():
+            sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), n=n)
         pairs = flash_pairs(pos, pos, None)
         fwd_bound, fwd_by = flash_bound_ms(q, k, pairs)
         fb_bound, fb_by = train_attention_bound_ms(q, k, pairs)
         k4b_bound, k4b_by = k4b_bound_ms(q, k, pairs)
+        flops = d * q.shape[2] * pairs  # D FLOPs per allowed pair and query head
+        f32_bounds = ({} if dtype == "bfloat16" else dict(
+            fwd_bounds_f32=f32_bounds_ms(4 * flops), fwd_bwd_bounds_f32=f32_bounds_ms(14 * flops),
+            k4b_bounds_f32=f32_bounds_ms(10 * flops)))
         rec = dict(k4_fwd_ms=k4_ms, k4b_ms=k4b_ms, k4b_device_ms_by_launch=split[dtype],
                    k4b_plain_ms_chunked_vjp=k4b_plain_ms,
                    chunked_bwd_ms=bwd_ms, chunked_fwd_bwd_ms=chunked_ms,
@@ -3427,7 +3473,8 @@ def phase_train_attention(smi: str) -> dict:
                    library_bwd_ms_sdpa=sdpa_bwd_ms, fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,
                    fwd_bwd_bound_ms=fb_bound, fwd_bwd_bound_by=fb_by, k4b_bound_ms=k4b_bound,
                    k4b_bound_by=k4b_by, k4b_roofline_share=k4b_bound / k4b_ms,
-                   k4b_vs_sdpa_bwd=k4b_ms / sdpa_bwd_ms)
+                   k4b_vs_sdpa_bwd=k4b_ms / sdpa_bwd_ms, library_fwd_ms_sdpa=sdpa_fwd_ms,
+                   **f32_bounds)
         log("train.k4.time", dtype=dtype, **rec, check_s=check_s,
             time_s=time.perf_counter() - t0, card=smi)
         out_rec[dtype] = rec

@@ -33,9 +33,25 @@
 3. ``flash_attention`` as ``chip_smoke.py``'s flash.time calls it, each
    tree's wrapper and library in a fresh process of its own, in turns
    parent, this, this, parent, at the two shapes of 1.
+4. ``kernels``: every kernel of this tree's two libraries as ptxas built
+   it (registers, spill bytes, static shared memory) and its HGMMA count
+   in the SASS; ``sass``: every bf16 kernel (and the bf16 plan and delta
+   pre-pass) of both libraries against the parent's, instruction by
+   instruction, immediates and constant-bank offsets masked.
+5. ``f32``: the float32 routes, the parent's kernels against this tree's
+   (the parent's scalar-FMA kernels, this tree's split-TF32 wgmma), both
+   through this tree's wrappers on the same inputs at llama3.2-3b's shapes
+   (24/8 heads, D=128, causal): K4 at S=4,096 and 8,192 and K4b and the
+   trainable route (fwd+bwd) at 4,096.  Each one's error against the plain
+   version, its device time by launch under ``torch.profiler``, then
+   CUDA-event medians with min and max in turns parent, this, this,
+   parent.
 
-Prints ``nvidia-smi``'s name and power limit first; needs ``nvcc`` and
-``cuobjdump`` (as chip_smoke.py does).
+The parent's sources are built against the parent's own shared headers
+(``--parent``/src/repro_torch/kernels/csrc first on nvcc's include path).
+``--parts`` picks the parts (default: all).  Prints ``nvidia-smi``'s name
+and power limit first; needs ``nvcc`` and ``cuobjdump`` (as chip_smoke.py
+does).
 """
 
 from __future__ import annotations
@@ -54,6 +70,16 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 FA_CSRC = Path("src/repro_torch/kernels/flash_attention/csrc")
+SHARED_CSRC = Path("src/repro_torch/kernels/csrc")
+PARTS = ("registers", "k4", "k4b", "wrapper", "kernels", "sass", "f32")
+
+
+def parent_flags(parent_root: Path) -> tuple:
+    """nvcc flags that build a parent tree's source against its own shared
+    headers (ahead of this tree's on the include path)."""
+    from repro_torch.kernels import NVCC_FLAGS
+
+    return (*NVCC_FLAGS, "-I", str(Path(parent_root).resolve() / SHARED_CSRC))
 
 
 def time_ms(fn, n: int = 30) -> float:
@@ -98,18 +124,18 @@ def forward_entry(lib, with_lse: bool):
     return fn
 
 
-def k4_parent_vs_this(parent_source: Path) -> None:
+def k4_parent_vs_this(parent_source: Path, flags: tuple) -> None:
     import torch
 
     from repro_torch.kernels import library_path, load_library
     from repro_torch.kernels.flash_attention import ops
 
     parent_lse = "void* lse" in parent_source.read_text()
-    entries = {"parent": forward_entry(load_library(parent_source), parent_lse),
+    entries = {"parent": forward_entry(load_library(parent_source, flags=flags), parent_lse),
                "this": forward_entry(load_library(ops.SOURCE), True)}
     has_lse = {"parent": parent_lse, "this": True}
     for dp in (128, 64):
-        a = sass_function(library_path(parent_source),
+        a = sass_function(library_path(parent_source, flags),
                           rf"flash_fwd_bf16ILi{dp}E(?:Lb0E)?E")
         b = sass_function(library_path(ops.SOURCE), rf"flash_fwd_bf16ILi{dp}ELb0EE")
         print("[k4.sass] " + json.dumps(dict(dp=dp, parent=len(a), this=len(b),
@@ -515,8 +541,12 @@ def launch_split(fn, n: int = 10) -> dict:
     return split
 
 
-def k4b_parent_vs_this(parent_source: Path, out_dir: Path) -> None:
+def k4b_parent_vs_this(parent_source: Path, out_dir: Path, flags: tuple) -> None:
+    import functools
+
     import torch
+
+    from repro_torch.kernels import load_library
 
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.models.attention import chunked_vjp
@@ -549,6 +579,8 @@ def k4b_parent_vs_this(parent_source: Path, out_dir: Path) -> None:
         # The parent's kernels read the first B * Hq * Sq values of the rows
         # scratch: this tree's wrapper serves both.
         ops.BWD_SOURCE = sources[name]
+        ops.load_library = (functools.partial(load_library, flags=flags) if name == "parent"
+                            else load_library)
         ops._bwd_library.cache_clear()
         ops.bwd_rows_scratch = design_b_scratch if name == "design_b" else plain_scratch
 
@@ -572,6 +604,151 @@ def k4b_parent_vs_this(parent_source: Path, out_dir: Path) -> None:
     use("this")
     medians = {name: sorted(t["median"] for n, t in turns if n == name) for name in sources}
     print("[k4b.ab] " + json.dumps(dict(turns=turns, medians=medians)), flush=True)
+
+
+def sass_functions(library: Path) -> dict:
+    """{kernel: masked instructions} of every kernel in ``library``, keyed
+    by its mangled name past the anonymous namespace (whose tag differs
+    from build to build)."""
+    sass = subprocess.run([shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump",
+                           "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = block.split("\n", 1)[0].strip()
+        m = re.search(r"\d+(flash_\w+)$", name)
+        out[m.group(1) if m else name] = [
+            re.sub(r"0x[0-9a-f]+", "X", ins.strip())
+            for ins in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", block)]
+    return out
+
+
+def kernel_report() -> None:
+    """Every kernel of this tree's K4 and K4b libraries: ptxas's registers,
+    spill bytes and static shared memory (``chip_smoke._ptxas_kernels``,
+    from a fresh build) and the HGMMA instructions in its SASS."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from repro_torch.kernels import nvcc_build
+    from repro_torch.kernels.flash_attention import ops
+
+    for source in (ops.SOURCE, ops.BWD_SOURCE):
+        out = ROOT / "build" / "k4_ab" / f"{source.stem}_report.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        kernels = chip_smoke._ptxas_kernels(nvcc_build(source, out))
+        hgmma = {name: sum("HGMMA" in ins for ins in body)
+                 for name, body in sass_functions(out).items()}
+        print("[k4.kernels] " + json.dumps(dict(source=source.name, ptxas=kernels,
+                                                hgmma=hgmma)), flush=True)
+
+
+def sass_vs_parent(fwd_parent: Path, bwd_parent: Path, flags: tuple) -> None:
+    """The bf16 kernels of both libraries (and the bf16 route's plan and
+    delta pre-pass) against the parent's build, instruction by instruction."""
+    from repro_torch.kernels import library_path, load_library
+    from repro_torch.kernels.flash_attention import ops
+
+    for parent, this in ((fwd_parent, ops.SOURCE), (bwd_parent, ops.BWD_SOURCE)):
+        load_library(parent, flags=flags)
+        load_library(this)
+        a, b = sass_functions(library_path(parent, flags)), sass_functions(library_path(this))
+        bf16 = sorted(n for n in a if "bf16" in n or n.startswith("flash_planE")
+                      or n.startswith("flash_bwd_deltaILb1E"))
+        print("[k4.sass] " + json.dumps(dict(
+            source=this.name, kernels={n: dict(parent=len(a[n]), this=len(b.get(n, [])),
+                                               equal=a[n] == b.get(n)) for n in bf16},
+            all_equal=all(a[n] == b.get(n) for n in bf16))), flush=True)
+
+
+def f32_parent_vs_this(fwd_parent: Path, bwd_parent: Path, flags: tuple) -> None:
+    """Part 5: the float32 routes, the parent's kernels against this tree's
+    through this tree's wrappers (the parent's C entries take the same
+    arguments and ignore the scratch this tree's f32 route adds)."""
+    import functools
+
+    import torch
+
+    from repro_torch.kernels import load_library
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models.attention import chunked_vjp
+
+    sources = {"parent": (fwd_parent, bwd_parent), "this": (ops.SOURCE, ops.BWD_SOURCE)}
+
+    def use(name):
+        ops.SOURCE, ops.BWD_SOURCE = sources[name]
+        ops.load_library = (functools.partial(load_library, flags=flags) if name == "parent"
+                            else load_library)
+        ops._library.cache_clear()
+        ops._bwd_library.cache_clear()
+
+    def turns(fn, n=10):
+        out = []
+        for name in ("parent", "this", "this", "parent"):
+            use(name)
+            out.append((name, time_spread(fn, n)))
+        return out
+
+    g = torch.Generator(device="cuda").manual_seed(28)
+    for s in (4096, 8192):
+        q = torch.randn(1, s, 24, 128, generator=g, device="cuda")
+        k, v = (torch.randn(1, s, 8, 128, generator=g, device="cuda") for _ in range(2))
+        pos = torch.arange(s, dtype=torch.int32, device="cuda")
+
+        def fwd():
+            return ops.flash_attention(q, k, v, q_positions=pos, kv_positions=pos)
+
+        checks = {}
+        if s == 4096:
+            want = flash_attention_ref(q, k, v, pos, pos).double()
+            for name in sources:
+                use(name)
+                got = fwd().double()
+                row = (got - want).norm(dim=-1) / want.norm(dim=-1)
+                checks[name] = dict(max_abs_err=(got - want).abs().max().item(),
+                                    max_row_rel_err=row.max().item(),
+                                    rows_past_1e_5=int((row > 1e-5).sum()),
+                                    device_ms_by_launch=launch_split(fwd))
+            del want
+        else:
+            for name in sources:
+                use(name)
+                checks[name] = dict(device_ms_by_launch=launch_split(fwd))
+        print("[f32.k4] " + json.dumps(dict(seq=s, checks=checks, turns=turns(fwd))),
+              flush=True)
+        del q, k, v
+    torch.cuda.empty_cache()
+
+    q, dout = (torch.randn(1, 4096, 24, 128, generator=g, device="cuda") for _ in range(2))
+    k, v = (torch.randn(1, 4096, 8, 128, generator=g, device="cuda") for _ in range(2))
+    pos = torch.arange(4096, dtype=torch.int32, device="cuda")
+    want = chunked_vjp(q, k, v, dout, q_positions=pos, kv_positions=pos, window=None,
+                       q_chunk=512, kv_chunk=1024)
+    use("this")
+    out, lse = ops._kernel_forward(q, k, v, pos, pos, None, with_lse=True)
+
+    def bwd():
+        return ops.flash_attention_bwd(q, k, v, out, dout, lse, q_positions=pos,
+                                       kv_positions=pos)
+
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def route():
+        return torch.autograd.grad(ops.flash_attention_trainable(
+            *leaves, q_positions=pos, kv_positions=pos), leaves, dout)
+
+    checks = {}
+    for name in sources:
+        use(name)
+        got, again = bwd(), bwd()
+        num = sum((a.double() - w.double()).square().sum() for a, w in zip(got, want))
+        rel = (num / sum(w.double().square().sum() for w in want)).sqrt().item()
+        checks[name] = dict(rel_l2_vs_chunked_vjp=rel,
+                            rerun_bitwise=all(torch.equal(a, b) for a, b in zip(got, again)),
+                            device_ms_by_launch=launch_split(bwd))
+    print("[f32.k4b] " + json.dumps(dict(checks=checks, turns=turns(bwd))), flush=True)
+    print("[f32.route] " + json.dumps(dict(turns=turns(route, n=5))), flush=True)
+    use("this")
 
 
 WRAPPER_TIMING = r"""
@@ -623,7 +800,13 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", type=Path, required=True,
                     help="a checkout of the parent commit (git archive)")
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "k4_ab")
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help=f"comma-separated parts to run, of {', '.join(PARTS)}")
     args = ap.parse_args(argv)
+    parts = args.parts.split(",")
+    unknown = set(parts) - set(PARTS)
+    if unknown:
+        ap.error(f"unknown parts {sorted(unknown)}")
     import torch
 
     if not torch.cuda.is_available():
@@ -632,10 +815,23 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
-    register_report(args.out)
-    k4_parent_vs_this(args.parent / FA_CSRC / "flash_attention.cu")
-    k4b_parent_vs_this(args.parent / FA_CSRC / "flash_attention_bwd.cu", args.out)
-    wrapper_turns(args.parent.resolve())
+    flags = parent_flags(args.parent)
+    fwd_parent = args.parent / FA_CSRC / "flash_attention.cu"
+    bwd_parent = args.parent / FA_CSRC / "flash_attention_bwd.cu"
+    if "registers" in parts:
+        register_report(args.out)
+    if "kernels" in parts:
+        kernel_report()
+    if "sass" in parts:
+        sass_vs_parent(fwd_parent, bwd_parent, flags)
+    if "k4" in parts:
+        k4_parent_vs_this(fwd_parent, flags)
+    if "k4b" in parts:
+        k4b_parent_vs_this(bwd_parent, args.out, flags)
+    if "wrapper" in parts:
+        wrapper_turns(args.parent.resolve())
+    if "f32" in parts:
+        f32_parent_vs_this(fwd_parent, bwd_parent, flags)
     return 0
 
 

@@ -2,8 +2,8 @@
 // backward K4b (flash_attention/csrc/flash_attention_bwd.cu): the mask
 // rules, the tile plan, and the Hopper building blocks of the bf16 routes
 // (mbarriers, TMA tensor maps and loads, wgmma with its shared-memory
-// descriptors).  Everything is in an anonymous namespace: each library
-// keeps its own copy.
+// descriptors); flash_tf32.cuh builds the f32 routes on them.  Everything
+// is in an anonymous namespace: each library keeps its own copy.
 
 #pragma once
 
@@ -29,25 +29,6 @@ __device__ __forceinline__ int warp_max(int x) {
   return x;
 }
 
-// The min and max position over pos[i0, i0 + rows), reduced by the whole
-// block (blockDim.x threads) through s_bounds[2].
-__device__ __forceinline__ void block_bounds(const int32_t* pos, int i0, int rows, int* s_bounds,
-                                             int& lo, int& hi) {
-  if (threadIdx.x == 0) {
-    s_bounds[0] = INT_MAX;
-    s_bounds[1] = INT_MIN;
-  }
-  __syncthreads();
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    const int v = pos[i0 + r];
-    atomicMin(&s_bounds[0], v);
-    atomicMax(&s_bounds[1], v);
-  }
-  __syncthreads();
-  lo = s_bounds[0];
-  hi = s_bounds[1];
-}
-
 // The kind of a kv tile whose real keys' positions lie in [kmin, kmax],
 // against a q block whose real rows' positions lie in [qmin, qmax].  0:
 // every pair masked (skip); 1: some pairs masked (mask per element); 2:
@@ -60,23 +41,6 @@ __device__ __forceinline__ int tile_kind(int kmin, int kmax, bool whole, int qmi
   if (w > 0 && (long long)kmax <= (long long)qmin - w) return 0;  // all too old
   const bool full = kmax <= qmin && (w <= 0 || (long long)kmin > (long long)qmax - w) && whole;
   return full ? 2 : 1;
-}
-
-// The kind of the `tile` positions from pos[i0] (real ones below n) against
-// [qmin, qmax], from the positions themselves (every warp computes the same
-// answer).
-__device__ __forceinline__ int classify_tile(const int32_t* pos, int i0, int tile, int n,
-                                             int qmin, int qmax, int window) {
-  const int lane = threadIdx.x & 31;
-  int lo = INT_MAX, hi = INT_MIN;
-  for (int i = lane; i < tile; i += 32) {
-    if (i0 + i < n) {
-      const int v = pos[i0 + i];
-      lo = min(lo, v);
-      hi = max(hi, v);
-    }
-  }
-  return tile_kind(warp_min(lo), warp_max(hi), i0 + tile <= n, qmin, qmax, window);
 }
 
 __device__ __forceinline__ bool allowed(int qp, int kp, int window) {
@@ -317,6 +281,18 @@ EncodeTiledFn encoder() {
 // Error codes of the entry points: a cudaError_t, or kTensorMapError plus
 // the CUresult of a tensor map that could not be encoded.
 constexpr int kTensorMapError = 1000;
+
+// cuTensorMapEncodeTiled needs a current context.  A host thread that has
+// made no CUDA runtime call yet has none (autograd's device thread, when
+// it runs a backward first: the encoder then returns
+// CUDA_ERROR_INVALID_CONTEXT), so an entry point that encodes first makes
+// the runtime bind the current device's primary context.
+inline int bind_context() {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaSetDevice(dev);
+  return (int)e;
+}
 
 // The tensor map of a [B, S, H, D] bf16 tensor with element strides (sb, ss,
 // sh) and a contiguous last dim: dims (D, H, S, B), boxes of 64 columns x 1

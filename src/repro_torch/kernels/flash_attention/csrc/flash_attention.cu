@@ -67,12 +67,22 @@
 //   either way; a row with none (only padding on the model's paths) gets 0.
 //   p is rounded to bf16 for P V as the reference does (p.astype(v.dtype));
 //   l sums p in f32.
-// * f32 keeps the first design: scalar FMA, 4 threads per q row, 32 x 32
-//   tiles staged by every thread, each warp classifying its tiles.
+// * f32 (flash_fwd_f32, kernels/csrc/flash_tf32.cuh): on the tensor cores
+//   by split TF32, three TF32 wgmma products for each f32 one, so the
+//   bound is 3 x 4 * D FLOPs a pair at 495 TFLOP/s (0.63 ms at the
+//   trainable route's shape, B=1, S=4096, 24/8, D=128), not 4 * D at the
+//   67 TFLOP/s of f32 FMA (1.54 ms).  A hi and a lo copy of every operand
+//   double its shared memory, so a CTA is one warpgroup of 64 q rows over
+//   32-key steps through a 2-deep TMA ring (197,672 bytes at D=128); TF32
+//   wgmma has no transpose flag, so a pre-pass writes q's and k's TF32
+//   halves as rows and v's as columns into the wrapper's scratch (four
+//   launches before the attention: flash_plan32, three splits).  Each
+//   step's P V goes into a fresh accumulator added to O in f32: the
+//   tensor core's own accumulation drifts over thousands of steps.
 // * On request (the trainable route's forward) each row's log-sum-exp, f32
 //   [B, Hq, Sq], in natural log as the reference's _chunked_gqa keeps it:
-//   (m + log2 l) * ln 2 from the base-2 running max and sum (f32: m + log
-//   l); +inf for a row with no allowed key.  The backward K4b
+//   (m + log2 l) * ln 2 from the base-2 running max and sum; +inf for a
+//   row with no allowed key.  The backward K4b
 //   (flash_attention_bwd.cu) reads it.  Each kernel is a template on it, so
 //   the instantiation the no-grad route launches is the code it was, and
 //   its output is bitwise the same.
@@ -83,7 +93,7 @@
 // The kernels neither allocate nor synchronize the host.  A wait on a
 // barrier that outlasts ~10 s traps (a launch error) instead of hanging.
 
-#include "flash_common.cuh"
+#include "flash_tf32.cuh"
 
 namespace {
 
@@ -103,8 +113,6 @@ struct Params {
   int window;  // <= 0: no window
   float scale;
 };
-
-constexpr int kThreads = 128;
 
 // ------------------------------- bf16 ----------------------------------
 
@@ -367,111 +375,78 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
 
 // ------------------------------- f32 -----------------------------------
 
-// DP: D rounded up to a multiple of 16.  Thread (row, c) of the 4 threads of
-// a q row holds the columns d = c + 4*i.
+// The forward body of flash_tf32.cuh: A = Q (tq), score B = K (tk), output
+// B = V^T (tvt); the second A and B maps are not read.
 template <int DP, bool LSE>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_f32(const Params p) {
-  constexpr int BQ = 32, BKV = 32, NC = DP / 4;
-  __shared__ float Ks[BKV * DP];
-  __shared__ float Vs[BKV * DP];
-  __shared__ int Kp[BKV];
-  __shared__ int s_bounds[2];
-
-  const int n_qb = (p.Sq + BQ - 1) / BQ;
-  const int q0 = (n_qb - 1 - (int)(blockIdx.x % n_qb)) * BQ;
-  const int bh = blockIdx.x / n_qb;
-  const int b = bh / p.Hq, h = bh % p.Hq;
-  const int hk = h / (p.Hq / p.Hkv);
-  const int tid = threadIdx.x;
-  const int r = q0 + tid / 4, c = tid % 4;
-
-  const float* qg = (const float*)p.q + (long long)b * p.q_sb + (long long)h * p.q_sh;
-  const float* kg = (const float*)p.k + (long long)b * p.k_sb + (long long)hk * p.k_sh;
-  const float* vg = (const float*)p.v + (long long)b * p.v_sb + (long long)hk * p.v_sh;
-
-  int qmin, qmax;
-  block_bounds(p.qpos, q0, min(BQ, p.Sq - q0), s_bounds, qmin, qmax);
-  const int qp = r < p.Sq ? p.qpos[r] : INT_MIN;
-
-  float qv[NC], acc[NC];
-#pragma unroll
-  for (int i = 0; i < NC; ++i) {
-    const int d = c + 4 * i;
-    qv[i] = (r < p.Sq && d < p.D) ? qg[(long long)r * p.q_ss + d] : 0.f;
-    acc[i] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-
-  const int n_kt = (p.Sk + BKV - 1) / BKV;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BKV;
-    const int kind = classify_tile(p.kpos, k0, BKV, p.Sk, qmin, qmax, p.window);
-    if (kind == 0) continue;
-    for (int u = tid; u < BKV * DP; u += kThreads) {
-      const int key = u / DP, d = u % DP;
-      const bool in = k0 + key < p.Sk && d < p.D;
-      Ks[u] = in ? kg[(long long)(k0 + key) * p.k_ss + d] : 0.f;
-      Vs[u] = in ? vg[(long long)(k0 + key) * p.v_ss + d] : 0.f;
-    }
-    if (tid < BKV) Kp[tid] = k0 + tid < p.Sk ? p.kpos[k0 + tid] : INT_MAX;
-    __syncthreads();
-
-    float s[BKV];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int kk = 0; kk < BKV; ++kk) {
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < NC; ++i) part = fmaf(qv[i], Ks[kk * DP + c + 4 * i], part);
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      float x = part * p.scale;
-      if (kind == 1 && (k0 + kk >= p.Sk || !allowed(qp, Kp[kk], p.window))) x = -INFINITY;
-      s[kk] = x;
-      mx = fmaxf(mx, x);
-    }
-    const float m_new = fmaxf(m, mx);
-    const float mu = m_new == -INFINITY ? 0.f : m_new;
-    const float alpha = expf(m - mu);
-    m = m_new;
-    l *= alpha;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int kk = 0; kk < BKV; ++kk) {
-      const float pe = expf(s[kk] - mu);
-      l += pe;
-#pragma unroll
-      for (int i = 0; i < NC; ++i) acc[i] = fmaf(pe, Vs[kk * DP + c + 4 * i], acc[i]);
-    }
-    __syncthreads();
-  }
-
-  if (LSE && c == 0 && r < p.Sq)  // natural log; +inf for a row with no key
-    p.lse[((long long)b * p.Hq + h) * p.Sq + r] = l > 0.f ? m + logf(l) : INFINITY;
-  if (r < p.Sq) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    float* og = (float*)p.out + (long long)b * p.o_sb + (long long)h * p.o_sh +
-                (long long)r * p.o_ss;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int d = c + 4 * i;
-      if (d < p.D) og[d] = acc[i] * inv;
-    }
-  }
+__global__ void __launch_bounds__(kTf32Threads, 1)
+flash_fwd_f32(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap unused_a,
+              const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap unused_b,
+              const __grid_constant__ CUtensorMap tvt, const Tf32Params p) {
+  tf32_body<kTf32Fwd, DP, LSE>(&tq, &unused_a, &tk, &unused_b, &tvt, p);
 }
 
+// The scratch's parts (ptr == nullptr: sizes only).
+struct FwdScratch {
+  int32_t* bounds;
+  float *qn, *kn, *vt;
+  long long bytes;
+};
+
+FwdScratch fwd_scratch(void* ptr, int B, int Sq, int Sk, int Hq, int Hkv, int D) {
+  const int DP = tf32_dp(D);
+  Tf32Scratch sc{(char*)ptr, 0};
+  FwdScratch f;
+  f.bounds = sc.take<int32_t>(8LL * (n32(Sk) + n32(Sq)));
+  f.qn = take_copy(sc, (long long)B * Hq * Sq * DP);
+  f.kn = take_copy(sc, (long long)B * Hkv * Sk * DP);
+  f.vt = take_copy(sc, (long long)B * Hkv * DP * round8(Sk));
+  f.bytes = sc.used;
+  return f;
+}
 
 template <int DP>
-cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
-  const long long ctas = (long long)((p.Sq + 31) / 32) * p.B * p.Hq;
-  if (ctas > 0x7fffffffLL) return cudaErrorInvalidConfiguration;  // gridDim.x's limit
-  if (p.lse != nullptr)
-    flash_fwd_f32<DP, true><<<(unsigned)ctas, kThreads, 0, stream>>>(p);
-  else
-    flash_fwd_f32<DP, false><<<(unsigned)ctas, kThreads, 0, stream>>>(p);
-  return cudaGetLastError();
+int launch_f32(const Params& p, void* scratch, cudaStream_t stream) {
+  const FwdScratch f = fwd_scratch(scratch, p.B, p.Sq, p.Sk, p.Hq, p.Hkv, p.D);
+  const int bq = p.B * p.Hq, bk = p.B * p.Hkv;
+  CUtensorMap tq, tk, tvt;
+  int err = encode_f32(&tq, f.qn, DP, p.Sq, 2 * bq, kTf32Rows);
+  if (!err) err = encode_f32(&tk, f.kn, DP, p.Sk, 2 * bk, kTf32Cols);
+  if (!err) err = encode_f32(&tvt, f.vt, round8(p.Sk), DP, 2 * bk, DP);
+  if (err) return err;
+  const long long ctas = (long long)((p.Sq + kTf32Rows - 1) / kTf32Rows) * bq;
+  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;  // gridDim.x's limit
+  err = launch_plan32(p.qpos, p.kpos, p.Sq, p.Sk, f.bounds, stream);
+  if (!err)
+    err = launch_split<DP>((const float*)p.q, p.q_sb, p.q_ss, p.q_sh, p.B, p.Sq, p.Hq, p.D, f.qn,
+                           nullptr, stream);
+  if (!err)
+    err = launch_split<DP>((const float*)p.k, p.k_sb, p.k_ss, p.k_sh, p.B, p.Sk, p.Hkv, p.D, f.kn,
+                           nullptr, stream);
+  if (!err)
+    err = launch_split<DP>((const float*)p.v, p.v_sb, p.v_ss, p.v_sh, p.B, p.Sk, p.Hkv, p.D,
+                           nullptr, f.vt, stream);
+  if (err) return err;
+  Tf32Params tp;
+  tp.out = p.out;
+  tp.o_sb = p.o_sb;
+  tp.o_ss = p.o_ss;
+  tp.o_sh = p.o_sh;
+  tp.lse = p.lse;
+  tp.delta = nullptr;
+  tp.qpos = p.qpos;
+  tp.kpos = p.kpos;
+  tp.kv_b32 = f.bounds;
+  tp.q_b32 = f.bounds + 2 * n32(p.Sk);
+  tp.B = p.B;
+  tp.Sq = p.Sq;
+  tp.Sk = p.Sk;
+  tp.Hq = p.Hq;
+  tp.Hkv = p.Hkv;
+  tp.D = p.D;
+  tp.window = p.window;
+  tp.scale = p.scale;
+  auto kernel = p.lse != nullptr ? flash_fwd_f32<DP, true> : flash_fwd_f32<DP, false>;
+  return launch_tf32<kTf32Fwd, DP>(kernel, tq, tq, tk, tk, tvt, tp, ctas, stream);
 }
 
 // ---------------------------- bf16 host side -----------------------------
@@ -520,12 +495,14 @@ int launch_bf16(const Params& p, int32_t* bounds, cudaStream_t stream) {
 // contiguous and the given element strides; qpos int32[Sq], kpos int32[Sk].
 // lse: nullptr, or f32 [B, Hq, Sq] for each row's log-sum-exp (natural log).
 // dtype 0: float32, 1: bfloat16.  window <= 0: none.  scale multiplies
-// q . k (the reference's 1/sqrt(D), rounded to f32).  bounds (bf16 only):
-// int32 scratch of 2 * (ceil(Sk / 128) + ceil(Sq / 128)) values.  The
-// caller checks D <= 128, D % 8 == 0, Hq % Hkv == 0, and for bf16 16-byte
-// aligned bases and strides (TMA's).  Launches on `stream` (bf16: the plan,
-// then the attention) and returns 0, a cudaError_t, or 1000 plus the
-// CUresult of a tensor map the driver refused.
+// q . k (the reference's 1/sqrt(D), rounded to f32).  bounds: bf16, int32
+// scratch of 2 * (ceil(Sk / 128) + ceil(Sq / 128)) values; f32, a 256-byte
+// aligned scratch of flash_attention_f32_scratch bytes.  The caller checks
+// D <= 128, Hq % Hkv == 0, and for bf16 D % 8 == 0 and 16-byte aligned
+// bases and strides (TMA's).  Launches on `stream` (bf16: the plan, then
+// the attention; f32: the plan, the splits of q, k and v, the attention)
+// and returns 0, a cudaError_t, or 1000 plus the CUresult of a tensor map
+// cuTensorMapEncodeTiled refused.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse, const void* qpos,
     const void* kpos, void* bounds, int B, int Sq, int Sk, int Hq, int Hkv, int D,
@@ -561,14 +538,14 @@ extern "C" int flash_attention_fwd(
   p.window = window;
   p.scale = scale;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (const int err = bind_context()) return err;
   if (dtype == 1) {
     if (D <= 64) return launch_bf16<64>(p, (int32_t*)bounds, s);
     return launch_bf16<128>(p, (int32_t*)bounds, s);
   }
-  if (D <= 16) return (int)launch_f32<16>(p, s);
-  if (D <= 32) return (int)launch_f32<32>(p, s);
-  if (D <= 64) return (int)launch_f32<64>(p, s);
-  return (int)launch_f32<128>(p, s);
+  if (D <= 32) return launch_f32<32>(p, bounds, s);
+  if (D <= 64) return launch_f32<64>(p, bounds, s);
+  return launch_f32<128>(p, bounds, s);
 }
 
 // The plan alone (the bf16 route's first launch): bounds as above.
@@ -581,4 +558,15 @@ extern "C" int flash_attention_plan(const void* qpos, const void* kpos, int Sq, 
 // Dynamic shared memory of one bf16 CTA at head dim D.
 extern "C" int flash_attention_bf16_smem(int D) {
   return D <= 64 ? Bf16Smem<64>::kBytes : Bf16Smem<128>::kBytes;
+}
+
+// Of one f32 CTA at head dim D.
+extern "C" int flash_attention_f32_smem(int D) {
+  return D <= 32 ? Tf32Smem<kTf32Fwd, 32>::kBytes
+                 : D <= 64 ? Tf32Smem<kTf32Fwd, 64>::kBytes : Tf32Smem<kTf32Fwd, 128>::kBytes;
+}
+
+// Bytes of the f32 route's scratch (the `bounds` argument for dtype 0).
+extern "C" long long flash_attention_f32_scratch(int B, int Sq, int Sk, int Hq, int Hkv, int D) {
+  return fwd_scratch(nullptr, B, Sq, Sk, Hq, Hkv, D).bytes;
 }

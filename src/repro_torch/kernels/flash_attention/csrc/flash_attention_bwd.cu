@@ -69,15 +69,30 @@
 // * P and dS are rounded to bf16 for wgmma where chunked_vjp keeps them in
 //   f32, so bf16 is held to a tolerance, not bitwise (chip_smoke.py,
 //   TRAINABLE_BWD_TOL).
-// * f32: flash_bwd_delta, then two plain scalar-FMA kernels with K4's f32
-//   32 x 32 staging, 4 threads a row (no TF32): dK/dV one CTA per (32-key
-//   tile, b * kv head) over the group's q tiles, dQ one CTA per (32-row q
-//   block, b * q head) over the kv tiles, each tile classified as in K4.
+// * f32 (kernels/csrc/flash_tf32.cuh): on the tensor cores by split TF32,
+//   three TF32 wgmma products for each f32 one: the bound is 3 x 10 * D
+//   FLOPs a pair at 495 TFLOP/s, 1.56 ms at the training shape (f32 FMA's
+//   67 TFLOP/s: 3.85 ms).  What limits the design is shared memory: an f32
+//   operand tile with its lo copy is four times a bf16 one (64 x 128: 64
+//   KB), and TF32 wgmma reads both operands K-major only, so the products
+//   that sum over the sequence need transposed copies.  Nine launches:
+//   flash_bwd_delta (as above, unpadded), flash_plan32, four
+//   flash_split_tf32 (q and dO as rows and columns, k as rows and
+//   columns, v as rows, into the wrapper's scratch), then three passes of
+//   one 128-thread warpgroup each: flash_bwd_dkdv_f32<DP, false> (dV: K
+//   kept, Q rows and dO columns streamed), flash_bwd_dkdv_f32<DP, true>
+//   (dK: K and V kept, Q and dO rows and Q columns streamed: 230,424
+//   bytes at D=128, so a one-stage ring) over 64-key tiles and the group's
+//   q heads in 32-row steps, and flash_bwd_dq_f32 over 64-row q blocks and
+//   32-key steps.  One dK/dV pass would keep K, V and four streamed
+//   copies: 256 KB at D=128, past the 227 KB a CTA may use; so dV and dK
+//   are two passes, 16 * D FLOPs a pair with dQ's recompute.
+//   Deterministic as the bf16 route: no atomics, the GQA sum in registers.
 //
 // The kernels neither allocate nor synchronize the host.  A wait on a
 // barrier that outlasts ~10 s traps (a launch error) instead of hanging.
 
-#include "flash_common.cuh"
+#include "flash_tf32.cuh"
 
 namespace {
 
@@ -631,197 +646,6 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant_
   }
 }
 
-// -------------------------------- f32 -----------------------------------
-
-constexpr int kF32Threads = 128;
-constexpr int kF32Tile = 32;  // rows of a q tile and keys of a kv tile
-
-// DP: D rounded up to a multiple of 16.  Thread (key, c) of the 4 threads
-// of a key holds the columns d = c + 4*i of its dK and dV.
-template <int DP>
-__global__ void __launch_bounds__(kF32Threads)
-flash_bwd_dkdv_f32(const BwdParams p) {
-  constexpr int BQ = kF32Tile, BKV = kF32Tile, NC = DP / 4;
-  __shared__ float Qs[BQ * DP];
-  __shared__ float Gs[BQ * DP];  // dO
-  __shared__ float Ls[BQ], Ds[BQ];
-  __shared__ int Qp[BQ];
-  __shared__ int s_bounds[2];
-
-  const int BH = p.B * p.Hkv;
-  const int kt = (int)(blockIdx.x / (unsigned)BH);  // kv tile 0 first
-  const int bh = (int)(blockIdx.x % (unsigned)BH);
-  const int b = bh / p.Hkv, hk = bh % p.Hkv;
-  const int g = p.Hq / p.Hkv;
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int k0 = kt * BKV, key = k0 + tid / 4, c = tid % 4;
-  const int kp = key < p.Sk ? p.kpos[key] : INT_MAX;
-
-  const float* kg = (const float*)p.k + (long long)b * p.k_sb + (long long)hk * p.k_sh;
-  const float* vg = (const float*)p.v + (long long)b * p.v_sb + (long long)hk * p.v_sh;
-  float kv[NC], vv[NC], dk[NC], dv[NC];
-#pragma unroll
-  for (int i = 0; i < NC; ++i) {
-    const int d = c + 4 * i;
-    const bool in = key < p.Sk && d < p.D;
-    kv[i] = in ? kg[(long long)key * p.k_ss + d] : 0.f;
-    vv[i] = in ? vg[(long long)key * p.v_ss + d] : 0.f;
-    dk[i] = dv[i] = 0.f;
-  }
-  int kmin, kmax;
-  block_bounds(p.kpos, k0, min(BKV, p.Sk - k0), s_bounds, kmin, kmax);
-  const bool whole = k0 + BKV <= p.Sk;
-
-  const int n_qt = (p.Sq + BQ - 1) / BQ;
-  for (int hl = 0; hl < g; ++hl) {
-    const int h = hk * g + hl;
-    const float* qg = (const float*)p.q + (long long)b * p.q_sb + (long long)h * p.q_sh;
-    const float* gg = (const float*)p.dout + (long long)b * p.do_sb + (long long)h * p.do_sh;
-    const float* lse_h = p.lse + row_base(p, b, h);
-    const float* delta_h = p.delta + row_base(p, b, h);
-    for (int qt = 0; qt < n_qt; ++qt) {
-      const int q0 = qt * BQ;
-      const int qr = q0 + lane;  // the q tile's bounds, by every warp
-      const int qpv = qr < p.Sq ? p.qpos[qr] : 0;
-      const int kind = tile_kind(kmin, kmax, whole, warp_min(qr < p.Sq ? qpv : INT_MAX),
-                                 warp_max(qr < p.Sq ? qpv : INT_MIN), p.window);
-      if (kind == 0) continue;
-      for (int u = tid; u < BQ * DP; u += kF32Threads) {
-        const int r = u / DP, d = u % DP;
-        const bool in = q0 + r < p.Sq && d < p.D;
-        Qs[u] = in ? qg[(long long)(q0 + r) * p.q_ss + d] : 0.f;
-        Gs[u] = in ? gg[(long long)(q0 + r) * p.do_ss + d] : 0.f;
-      }
-      if (tid < BQ) {
-        const bool in = q0 + tid < p.Sq;
-        Ls[tid] = in ? lse_h[q0 + tid] : INFINITY;
-        Ds[tid] = in ? delta_h[q0 + tid] : 0.f;
-        Qp[tid] = in ? p.qpos[q0 + tid] : INT_MIN;
-      }
-      __syncthreads();
-      for (int qq = 0; qq < BQ; ++qq) {
-        float sp = 0.f, dpp = 0.f;
-#pragma unroll
-        for (int i = 0; i < NC; ++i) {
-          sp = fmaf(kv[i], Qs[qq * DP + c + 4 * i], sp);
-          dpp = fmaf(vv[i], Gs[qq * DP + c + 4 * i], dpp);
-        }
-        sp += __shfl_xor_sync(0xffffffffu, sp, 1);
-        sp += __shfl_xor_sync(0xffffffffu, sp, 2);
-        dpp += __shfl_xor_sync(0xffffffffu, dpp, 1);
-        dpp += __shfl_xor_sync(0xffffffffu, dpp, 2);
-        float pe = expf(sp * p.scale - Ls[qq]);
-        if (kind == 1 && !allowed(Qp[qq], kp, p.window)) pe = 0.f;
-        const float ds = pe * (dpp - Ds[qq]);
-#pragma unroll
-        for (int i = 0; i < NC; ++i) {
-          dv[i] = fmaf(pe, Gs[qq * DP + c + 4 * i], dv[i]);
-          dk[i] = fmaf(ds, Qs[qq * DP + c + 4 * i], dk[i]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-  if (key < p.Sk) {
-    float* dkg = (float*)p.dk + (long long)b * p.dk_sb + (long long)hk * p.dk_sh +
-                 (long long)key * p.dk_ss;
-    float* dvg = (float*)p.dv + (long long)b * p.dv_sb + (long long)hk * p.dv_sh +
-                 (long long)key * p.dv_ss;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int d = c + 4 * i;
-      if (d < p.D) {
-        dkg[d] = dk[i] * p.scale;
-        dvg[d] = dv[i];
-      }
-    }
-  }
-}
-
-// Thread (row, c) of the 4 threads of a q row holds the columns d = c + 4*i
-// of its q, dO and dQ.
-template <int DP>
-__global__ void __launch_bounds__(kF32Threads)
-flash_bwd_dq_f32(const BwdParams p) {
-  constexpr int BQ = kF32Tile, BKV = kF32Tile, NC = DP / 4;
-  __shared__ float Ks[BKV * DP];
-  __shared__ float Vs[BKV * DP];
-  __shared__ int Kp[BKV];
-  __shared__ int s_bounds[2];
-
-  const int n_qb = (p.Sq + BQ - 1) / BQ;
-  const int q0 = (n_qb - 1 - (int)(blockIdx.x % n_qb)) * BQ;
-  const int bh = blockIdx.x / n_qb;
-  const int b = bh / p.Hq, h = bh % p.Hq;
-  const int hk = h / (p.Hq / p.Hkv);
-  const int tid = threadIdx.x;
-  const int r = q0 + tid / 4, c = tid % 4;
-
-  const float* qg = (const float*)p.q + (long long)b * p.q_sb + (long long)h * p.q_sh;
-  const float* gg = (const float*)p.dout + (long long)b * p.do_sb + (long long)h * p.do_sh;
-  const float* kg = (const float*)p.k + (long long)b * p.k_sb + (long long)hk * p.k_sh;
-  const float* vg = (const float*)p.v + (long long)b * p.v_sb + (long long)hk * p.v_sh;
-
-  int qmin, qmax;
-  block_bounds(p.qpos, q0, min(BQ, p.Sq - q0), s_bounds, qmin, qmax);
-  const bool row_in = r < p.Sq;
-  const int qp = row_in ? p.qpos[r] : INT_MIN;
-  const float lse_r = row_in ? p.lse[row_base(p, b, h) + r] : INFINITY;
-  const float delta_r = row_in ? p.delta[row_base(p, b, h) + r] : 0.f;
-
-  float qv[NC], gv[NC], dq[NC];
-#pragma unroll
-  for (int i = 0; i < NC; ++i) {
-    const int d = c + 4 * i;
-    const bool in = row_in && d < p.D;
-    qv[i] = in ? qg[(long long)r * p.q_ss + d] : 0.f;
-    gv[i] = in ? gg[(long long)r * p.do_ss + d] : 0.f;
-    dq[i] = 0.f;
-  }
-
-  const int n_kt = (p.Sk + BKV - 1) / BKV;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BKV;
-    const int kind = classify_tile(p.kpos, k0, BKV, p.Sk, qmin, qmax, p.window);
-    if (kind == 0) continue;
-    for (int u = tid; u < BKV * DP; u += kF32Threads) {
-      const int key = u / DP, d = u % DP;
-      const bool in = k0 + key < p.Sk && d < p.D;
-      Ks[u] = in ? kg[(long long)(k0 + key) * p.k_ss + d] : 0.f;
-      Vs[u] = in ? vg[(long long)(k0 + key) * p.v_ss + d] : 0.f;
-    }
-    if (tid < BKV) Kp[tid] = k0 + tid < p.Sk ? p.kpos[k0 + tid] : INT_MAX;
-    __syncthreads();
-    for (int kk = 0; kk < BKV; ++kk) {
-      float sp = 0.f, dpp = 0.f;
-#pragma unroll
-      for (int i = 0; i < NC; ++i) {
-        sp = fmaf(qv[i], Ks[kk * DP + c + 4 * i], sp);
-        dpp = fmaf(gv[i], Vs[kk * DP + c + 4 * i], dpp);
-      }
-      sp += __shfl_xor_sync(0xffffffffu, sp, 1);
-      sp += __shfl_xor_sync(0xffffffffu, sp, 2);
-      dpp += __shfl_xor_sync(0xffffffffu, dpp, 1);
-      dpp += __shfl_xor_sync(0xffffffffu, dpp, 2);
-      float pe = expf(sp * p.scale - lse_r);
-      if (kind == 1 && !allowed(qp, Kp[kk], p.window)) pe = 0.f;
-      const float ds = pe * (dpp - delta_r);
-#pragma unroll
-      for (int i = 0; i < NC; ++i) dq[i] = fmaf(ds, Ks[kk * DP + c + 4 * i], dq[i]);
-    }
-    __syncthreads();
-  }
-  if (row_in) {
-    float* dqg = (float*)p.dq + (long long)b * p.dq_sb + (long long)h * p.dq_sh +
-                 (long long)r * p.dq_ss;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int d = c + 4 * i;
-      if (d < p.D) dqg[d] = dq[i] * p.scale;
-    }
-  }
-}
-
 // ------------------------------ host side -------------------------------
 
 template <bool BF16>
@@ -833,19 +657,124 @@ int launch_delta(const BwdParams& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// -------------------------------- f32 -----------------------------------
+
+// The dV (DK false) and dK (DK true) passes of flash_tf32.cuh: A = K (ta0)
+// and V (ta1, dK), score B = Q (tb0) and dO (tb1, dK), output B = dO^T
+// (dV) or Q^T (dK), one CTA per (64-key tile, b * kv head).
+template <int DP, bool DK>
+__global__ void __launch_bounds__(kTf32Threads, 1)
+flash_bwd_dkdv_f32(const __grid_constant__ CUtensorMap ta0, const __grid_constant__ CUtensorMap ta1,
+                   const __grid_constant__ CUtensorMap tb0, const __grid_constant__ CUtensorMap tb1,
+                   const __grid_constant__ CUtensorMap tt, const Tf32Params p) {
+  tf32_body<DK ? kTf32Dk : kTf32Dv, DP, false>(&ta0, &ta1, &tb0, &tb1, &tt, p);
+}
+
+// dQ: A = Q, dO; score B = K, V; output B = K^T; one CTA per (64-row q
+// block, b * q head), heaviest first.
 template <int DP>
-int launch_f32(const BwdParams& p, cudaStream_t stream) {
-  const long long dkdv_ctas = (long long)((p.Sk + kF32Tile - 1) / kF32Tile) * p.B * p.Hkv;
-  const long long dq_ctas = (long long)((p.Sq + kF32Tile - 1) / kF32Tile) * p.B * p.Hq;
+__global__ void __launch_bounds__(kTf32Threads, 1)
+flash_bwd_dq_f32(const __grid_constant__ CUtensorMap ta0, const __grid_constant__ CUtensorMap ta1,
+                 const __grid_constant__ CUtensorMap tb0, const __grid_constant__ CUtensorMap tb1,
+                 const __grid_constant__ CUtensorMap tt, const Tf32Params p) {
+  tf32_body<kTf32Dq, DP, false>(&ta0, &ta1, &tb0, &tb1, &tt, p);
+}
+
+// The scratch's parts (ptr == nullptr: sizes only).
+struct BwdScratch {
+  int32_t* bounds;
+  float *qn, *qt, *dn, *dt, *kn, *kt, *vn;
+  long long bytes;
+};
+
+BwdScratch bwd_scratch(void* ptr, int B, int Sq, int Sk, int Hq, int Hkv, int D) {
+  const int DP = tf32_dp(D);
+  const long long qn = (long long)B * Hq * Sq * DP, qt = (long long)B * Hq * DP * round8(Sq);
+  const long long kn = (long long)B * Hkv * Sk * DP, kt = (long long)B * Hkv * DP * round8(Sk);
+  Tf32Scratch sc{(char*)ptr, 0};
+  BwdScratch f;
+  f.bounds = sc.take<int32_t>(8LL * (n32(Sk) + n32(Sq)));
+  f.qn = take_copy(sc, qn);
+  f.qt = take_copy(sc, qt);
+  f.dn = take_copy(sc, qn);
+  f.dt = take_copy(sc, qt);
+  f.kn = take_copy(sc, kn);
+  f.kt = take_copy(sc, kt);
+  f.vn = take_copy(sc, kn);
+  f.bytes = sc.used;
+  return f;
+}
+
+template <int DP>
+int launch_f32(const BwdParams& p, void* scratch, cudaStream_t stream) {
+  const BwdScratch f = bwd_scratch(scratch, p.B, p.Sq, p.Sk, p.Hq, p.Hkv, p.D);
+  const int bq = 2 * p.B * p.Hq, bk = 2 * p.B * p.Hkv;  // planes: hi, then lo
+  CUtensorMap qa, qb, da, db, qt, dt, ka, kb, kt, va, vb;
+  int err = encode_f32(&qa, f.qn, DP, p.Sq, bq, kTf32Rows);
+  if (!err) err = encode_f32(&qb, f.qn, DP, p.Sq, bq, kTf32Cols);
+  if (!err) err = encode_f32(&da, f.dn, DP, p.Sq, bq, kTf32Rows);
+  if (!err) err = encode_f32(&db, f.dn, DP, p.Sq, bq, kTf32Cols);
+  if (!err) err = encode_f32(&qt, f.qt, round8(p.Sq), DP, bq, DP);
+  if (!err) err = encode_f32(&dt, f.dt, round8(p.Sq), DP, bq, DP);
+  if (!err) err = encode_f32(&ka, f.kn, DP, p.Sk, bk, kTf32Rows);
+  if (!err) err = encode_f32(&kb, f.kn, DP, p.Sk, bk, kTf32Cols);
+  if (!err) err = encode_f32(&kt, f.kt, round8(p.Sk), DP, bk, DP);
+  if (!err) err = encode_f32(&va, f.vn, DP, p.Sk, bk, kTf32Rows);
+  if (!err) err = encode_f32(&vb, f.vn, DP, p.Sk, bk, kTf32Cols);
+  if (err) return err;
+  const long long dkdv_ctas = (long long)((p.Sk + kTf32Rows - 1) / kTf32Rows) * p.B * p.Hkv;
+  const long long dq_ctas = (long long)((p.Sq + kTf32Rows - 1) / kTf32Rows) * p.B * p.Hq;
   if (dkdv_ctas > 0x7fffffffLL || dq_ctas > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;  // gridDim.x's limit
-  int err = launch_delta<false>(p, stream);
+  err = launch_delta<false>(p, stream);
+  if (!err) err = launch_plan32(p.qpos, p.kpos, p.Sq, p.Sk, f.bounds, stream);
+  if (!err)
+    err = launch_split<DP>((const float*)p.q, p.q_sb, p.q_ss, p.q_sh, p.B, p.Sq, p.Hq, p.D, f.qn,
+                           f.qt, stream);
+  if (!err)
+    err = launch_split<DP>((const float*)p.dout, p.do_sb, p.do_ss, p.do_sh, p.B, p.Sq, p.Hq, p.D,
+                           f.dn, f.dt, stream);
+  if (!err)
+    err = launch_split<DP>((const float*)p.k, p.k_sb, p.k_ss, p.k_sh, p.B, p.Sk, p.Hkv, p.D, f.kn,
+                           f.kt, stream);
+  if (!err)
+    err = launch_split<DP>((const float*)p.v, p.v_sb, p.v_ss, p.v_sh, p.B, p.Sk, p.Hkv, p.D, f.vn,
+                           nullptr, stream);
   if (err) return err;
-  flash_bwd_dkdv_f32<DP><<<(unsigned)dkdv_ctas, kF32Threads, 0, stream>>>(p);
-  err = (int)cudaGetLastError();
+  Tf32Params tp;
+  tp.lse = const_cast<float*>(p.lse);
+  tp.delta = p.delta;
+  tp.qpos = p.qpos;
+  tp.kpos = p.kpos;
+  tp.kv_b32 = f.bounds;
+  tp.q_b32 = f.bounds + 2 * n32(p.Sk);
+  tp.B = p.B;
+  tp.Sq = p.Sq;
+  tp.Sk = p.Sk;
+  tp.Hq = p.Hq;
+  tp.Hkv = p.Hkv;
+  tp.D = p.D;
+  tp.window = p.window;
+  tp.scale = p.scale;
+  tp.out = p.dv;
+  tp.o_sb = p.dv_sb;
+  tp.o_ss = p.dv_ss;
+  tp.o_sh = p.dv_sh;
+  err = launch_tf32<kTf32Dv, DP>(flash_bwd_dkdv_f32<DP, false>, ka, ka, qb, qb, dt, tp, dkdv_ctas,
+                                 stream);
   if (err) return err;
-  flash_bwd_dq_f32<DP><<<(unsigned)dq_ctas, kF32Threads, 0, stream>>>(p);
-  return (int)cudaGetLastError();
+  tp.out = p.dk;
+  tp.o_sb = p.dk_sb;
+  tp.o_ss = p.dk_ss;
+  tp.o_sh = p.dk_sh;
+  err = launch_tf32<kTf32Dk, DP>(flash_bwd_dkdv_f32<DP, true>, ka, va, qb, db, qt, tp, dkdv_ctas,
+                                 stream);
+  if (err) return err;
+  tp.out = p.dq;
+  tp.o_sb = p.dq_sb;
+  tp.o_ss = p.dq_ss;
+  tp.o_sh = p.dq_sh;
+  return launch_tf32<kTf32Dq, DP>(flash_bwd_dq_f32<DP>, qa, da, kb, vb, kt, tp, dq_ctas, stream);
 }
 
 template <int DP>
@@ -893,15 +822,17 @@ int launch_bf16(const BwdParams& p, int32_t* bounds, cudaStream_t stream) {
 // dout, dq, dk, dv in that order); lse: f32 [B, Hq, Sq] from K4's forward
 // (natural log); qpos int32[Sq], kpos int32[Sk].  dtype 0: float32, 1:
 // bfloat16 (every tensor but lse in it).  window <= 0: none.  scale
-// multiplies q . k (the reference's 1/sqrt(D), rounded to f32).  bounds
-// (bf16 only): int32 scratch of 2 * (ceil(Sk / 128) + ceil(Sq / 128))
-// values; delta: f32 scratch of the rows, B * Hq * Sq values (f32), or 2 *
+// multiplies q . k (the reference's 1/sqrt(D), rounded to f32).  bounds:
+// bf16, int32 scratch of 2 * (ceil(Sk / 128) + ceil(Sq / 128)) values;
+// f32, a 256-byte aligned scratch of flash_attention_bwd_f32_scratch
+// bytes.  delta: f32 scratch of the rows, B * Hq * Sq values (f32), or 2 *
 // B * Hq * Sq_pad with Sq_pad = 128 * ceil(Sq / 128) (bf16: each row's
 // lse2, then its delta; ops.py::bwd_rows_scratch).  The caller checks D <=
-// 128, D % 8 == 0, Hq % Hkv == 0, and for bf16 16-byte aligned bases and
-// strides (TMA's).  Launches on `stream` (bf16: the plan, delta, dK/dV,
-// dQ; f32: delta, dK/dV, dQ) and returns 0, a cudaError_t, or 1000 plus
-// the CUresult of a tensor map the driver refused.
+// 128, Hq % Hkv == 0, and for bf16 D % 8 == 0 and 16-byte aligned bases
+// and strides (TMA's).  Launches on `stream` (bf16: the plan, delta, dK/dV,
+// dQ; f32: delta, the plan, four splits, dV, dK, dQ) and returns 0, a
+// cudaError_t, or 1000 plus the CUresult of a tensor map
+// cuTensorMapEncodeTiled refused.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* out, const void* dout,
     const void* lse, void* dq, void* dk, void* dv, const void* qpos, const void* kpos,
@@ -962,6 +893,7 @@ extern "C" int flash_attention_bwd(
   p.lse2 = nullptr;
   p.Sq_pad = Sq;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (const int err = bind_context()) return err;
   if (dtype == 1) {
     p.Sq_pad = n_tiles(Sq) * kBQ;
     p.lse2 = (float*)delta;
@@ -969,10 +901,9 @@ extern "C" int flash_attention_bwd(
     if (D <= 64) return launch_bf16<64>(p, (int32_t*)bounds, s);
     return launch_bf16<128>(p, (int32_t*)bounds, s);
   }
-  if (D <= 16) return launch_f32<16>(p, s);
-  if (D <= 32) return launch_f32<32>(p, s);
-  if (D <= 64) return launch_f32<64>(p, s);
-  return launch_f32<128>(p, s);
+  if (D <= 32) return launch_f32<32>(p, bounds, s);
+  if (D <= 64) return launch_f32<64>(p, bounds, s);
+  return launch_f32<128>(p, bounds, s);
 }
 
 // Dynamic shared memory of one bf16 CTA at head dim D: kernel 0 the dK/dV
@@ -980,4 +911,22 @@ extern "C" int flash_attention_bwd(
 extern "C" int flash_attention_bwd_smem(int D, int kernel) {
   if (kernel == 0) return D <= 64 ? DkdvSmem<64>::kBytes : DkdvSmem<128>::kBytes;
   return D <= 64 ? DqSmem<64>::kBytes : DqSmem<128>::kBytes;
+}
+
+// Dynamic shared memory of one f32 CTA at head dim D: kernel 0 the dV
+// pass, 1 the dK pass, 2 the dQ kernel.
+extern "C" int flash_attention_bwd_f32_smem(int D, int kernel) {
+  const int mode = kernel == 0 ? kTf32Dv : kernel == 1 ? kTf32Dk : kTf32Dq;
+#define TF32_SMEM(M)                                                          \
+  (D <= 32 ? Tf32Smem<M, 32>::kBytes : D <= 64 ? Tf32Smem<M, 64>::kBytes \
+                                               : Tf32Smem<M, 128>::kBytes)
+  return mode == kTf32Dv ? TF32_SMEM(kTf32Dv) : mode == kTf32Dk ? TF32_SMEM(kTf32Dk)
+                                                                 : TF32_SMEM(kTf32Dq);
+#undef TF32_SMEM
+}
+
+// Bytes of the f32 route's scratch (the `bounds` argument for dtype 0).
+extern "C" long long flash_attention_bwd_f32_scratch(int B, int Sq, int Sk, int Hq, int Hkv,
+                                                     int D) {
+  return bwd_scratch(nullptr, B, Sq, Sk, Hq, Hkv, D).bytes;
 }

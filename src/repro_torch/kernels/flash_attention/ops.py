@@ -32,7 +32,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# The kernel's tiles: q rows per CTA and keys per kv tile.
+# The kernel's tiles: q rows per CTA and keys per kv tile (float32: 64-row
+# CTAs over 32-key steps, split-TF32 wgmma, ``kernels/csrc/flash_tf32.cuh``).
 Q_BLOCK_BF16 = KV_TILE_BF16 = 128
 KV_TILE_F32 = 32
 # Codes of the C entry points at or above this are cuTensorMapEncodeTiled's
@@ -96,6 +97,51 @@ def bwd_bf16_smem_bytes(d: int) -> dict:
     return {"dkdv": lib.flash_attention_bwd_smem(d, 0), "dq": lib.flash_attention_bwd_smem(d, 1)}
 
 
+def _query(lib, name: str, nargs: int, restype=ctypes.c_int):
+    """A size query of a built library (declared at first use)."""
+    fn = getattr(lib, name)
+    fn.restype, fn.argtypes = restype, [ctypes.c_int] * nargs
+    return fn
+
+
+def f32_smem_bytes(d: int) -> dict:
+    """Dynamic shared memory of one float32 CTA at head dim ``d``: K4's
+    forward and K4b's dV, dK and dQ passes."""
+    bwd = _query(_bwd_library(), "flash_attention_bwd_f32_smem", 2)
+    return {"fwd": _query(_library(), "flash_attention_f32_smem", 1)(d), "dv": bwd(d, 0),
+            "dk": bwd(d, 1), "dq": bwd(d, 2)}
+
+
+def f32_scratch_bytes_built(b: int, sq: int, sk: int, hq: int, hkv: int, d: int, *,
+                            backward: bool = False) -> int:
+    """The scratch bytes the built library carves (``f32_scratch_bytes``
+    mirrors it; the card's tests hold the two equal)."""
+    lib, name = ((_bwd_library(), "flash_attention_bwd_f32_scratch") if backward
+                 else (_library(), "flash_attention_f32_scratch"))
+    return _query(lib, name, 6, ctypes.c_longlong)(b, sq, sk, hq, hkv, d)
+
+
+def f32_scratch_bytes(b: int, sq: int, sk: int, hq: int, hkv: int, d: int, *,
+                      backward: bool = False) -> int:
+    """Bytes of the float32 route's scratch, as the C entry points carve it
+    (``flash_tf32.cuh``): each part rounded up to 256 bytes; the int32
+    (min, max) of every 32 keys and 32 q rows, then each split copy as its
+    TF32 hi and lo, D padded to 32, 64 or 128 columns.  Forward: q and k
+    as rows, v as columns (the sequence rounded up to 8); backward: q and
+    dout as rows and columns, k as rows and columns, v as rows."""
+    dp = 32 if d <= 32 else 64 if d <= 64 else 128
+
+    def up(n: int, m: int) -> int:
+        return -(-n // m) * m
+
+    q_rows, q_cols = 8 * b * hq * sq * dp, 8 * b * hq * dp * up(sq, 8)
+    k_rows, k_cols = 8 * b * hkv * sk * dp, 8 * b * hkv * dp * up(sk, 8)
+    parts = [8 * (up(sk, 32) + up(sq, 32)) // 32]
+    parts += ([q_rows, q_cols, q_rows, q_cols, k_rows, k_cols, k_rows] if backward
+              else [q_rows, k_rows, k_cols])
+    return sum(up(n, 256) for n in parts)
+
+
 def bwd_rows_scratch(b: int, sq: int, hq: int, dtype: torch.dtype) -> int:
     """Float32 values of K4b's per-row scratch: delta, ``[B, Hq, Sq]``, for
     float32; for bfloat16 each row's log-sum-exp times log2 e and its delta,
@@ -126,12 +172,16 @@ def tile_bounds(q_positions: torch.Tensor, kv_positions: torch.Tensor) -> torch.
     return bounds
 
 
-def _plan_scratch(q, sk: int) -> Optional[torch.Tensor]:
-    """The bfloat16 route's scratch for the tile plan (None for float32)."""
-    if q.dtype != torch.bfloat16:
-        return None
-    return torch.empty(2 * (_n_tiles(sk) + _n_tiles(q.shape[1])), dtype=torch.int32,
-                       device=q.device)
+def _plan_scratch(q, k, *, backward: bool = False) -> torch.Tensor:
+    """The C entry's ``bounds`` scratch: the bfloat16 route's tile plan, or
+    the float32 route's plan and split copies (``f32_scratch_bytes``)."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if q.dtype == torch.bfloat16:
+        return torch.empty(2 * (_n_tiles(sk) + _n_tiles(sq)), dtype=torch.int32,
+                           device=q.device)
+    return torch.empty(f32_scratch_bytes(b, sq, sk, hq, hkv, d, backward=backward),
+                       dtype=torch.uint8, device=q.device)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -143,7 +193,7 @@ def _launch(q, k, v, out, qpos, kpos, window: Optional[int],
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    bounds = _plan_scratch(q, sk)
+    bounds = _plan_scratch(q, k)
     with torch.cuda.device(q.device):
         err = _library().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
@@ -215,7 +265,8 @@ def flash_attention(
     for a TPU that the port never has).  ``block_q`` and ``block_kv`` set
     the reference's Pallas tiles and the padding of Sq and Sk to them; the
     kernel picks its own tiles (bfloat16: 128-row q blocks and 128-key kv
-    tiles through wgmma and a TMA ring; float32: 32 x 32) and masks the
+    tiles through wgmma and a TMA ring; float32: 64-row q blocks and
+    32-key tiles through split-TF32 wgmma) and masks the
     ragged edge instead of padding, and neither changes the output of a
     real row.  A row with no allowed key (never on the model's paths) is 0
     from the kernel and the mean of v from the plain version.
@@ -324,7 +375,7 @@ def flash_attention_bwd(
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     qpos, kpos = _positions(q_positions, kv_positions)
     sk, hkv, d = k.shape[1], k.shape[2], k.shape[3]
-    bounds = _plan_scratch(q, sk)
+    bounds = _plan_scratch(q, k, backward=True)
     rows = torch.empty(bwd_rows_scratch(b, sq, hq, q.dtype), dtype=torch.float32,
                        device=q.device)
     strides = [s for t in (q, k, v, out, dout, dq, dk, dv) for s in t.stride()[:3]]

@@ -835,6 +835,44 @@ def test_flash_bwd_kernel_is_bitwise_deterministic(cuda, window, dtype):
     assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_from_a_fresh_thread(cuda, dtype):
+    """K4 and K4b called first from a host thread that has made no CUDA
+    call yet, as autograd's device thread does when it runs a backward:
+    the entry points bind the device's context before encoding their TMA
+    tensor maps (cuTensorMapEncodeTiled needs one), and the results equal
+    this thread's."""
+    import threading
+
+    from repro_torch.kernels.flash_attention import ops
+
+    b, s, hq, hkv, d = 1, 300, 6, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, dout = (torch.randn(b, s, hq, d, generator=g, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn(b, s, hkv, d, generator=g, device=cuda).to(dtype) for _ in range(2))
+    pos = torch.arange(s, dtype=torch.int32, device=cuda)
+
+    def run():
+        out, lse = ops._kernel_forward(q, k, v, pos, pos, None, with_lse=True)
+        return (out, *ops.flash_attention_bwd(q, k, v, out, dout, lse, q_positions=pos,
+                                              kv_positions=pos))
+
+    got, errors = [], []
+    thread = threading.Thread(target=lambda: _catch(lambda: got.extend(run()), errors))
+    thread.start()
+    thread.join()
+    assert not errors, errors
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, run()))
+
+
+def _catch(fn, errors):
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 - reported by the test's thread
+        errors.append(repr(e))
+
+
 def test_flash_bwd_kernel_reads_strided_views(cuda):
     """q/k/v as column slices of one packed [B, S, (Hq + 2 Hkv) D] tensor
     and dout a transposed view: read through their strides (dout made
@@ -883,6 +921,22 @@ def test_flash_trainable_on_card(cuda, dtype):
                                                      kv_positions=pos, impl="xla"))
         for x, y in zip(got, dense):
             torch.testing.assert_close(x, y, rtol=2e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [8, 32, 40, 64, 72, 128])
+def test_flash_f32_kernels_fit_and_scratch_matches(cuda, d):
+    """Every float32 (split-TF32) CTA of K4 and K4b at head dim ``d`` fits
+    Hopper's 227 KB of shared memory a block, and the scratch the built
+    libraries carve equals ``ops.f32_scratch_bytes``, which the wrapper
+    allocates."""
+    from repro_torch.kernels import MAX_SMEM_BYTES
+    from repro_torch.kernels.flash_attention import ops
+
+    assert all(0 < n <= MAX_SMEM_BYTES for n in ops.f32_smem_bytes(d).values())
+    for b, sq, sk, hq, hkv in ((1, 4096, 4096, 24, 8), (2, 129, 257, 6, 2), (3, 1, 7, 4, 4)):
+        for backward in (False, True):
+            assert ops.f32_scratch_bytes_built(b, sq, sk, hq, hkv, d, backward=backward) == (
+                ops.f32_scratch_bytes(b, sq, sk, hq, hkv, d, backward=backward))
 
 
 def _numpy_tree(params):
