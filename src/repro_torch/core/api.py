@@ -433,7 +433,9 @@ def _backend_for(problem: Problem, edges: EdgeList):
             tiling_for_edges,
         )
 
-        return degree_backend_from_tiling(tiling_for_edges(edges, tile_size=problem.tile_size))
+        with hostsync.span("repro_torch.tiling"):
+            tiling = tiling_for_edges(edges, tile_size=problem.tile_size)
+        return degree_backend_from_tiling(tiling)
     raise ValueError(f"unresolved backend {problem.backend!r}")
 
 
@@ -589,27 +591,28 @@ class Solver:
         required by, and only by, ``substrate='local'``: the node whose
         dense neighborhood is wanted.
         """
-        if not isinstance(graph, EdgeList):
-            raise TypeError(f"solve() takes an EdgeList graph, got {type(graph).__name__}")
-        prob = problem.resolve(graph.n_nodes, have_mesh=mesh is not None and mesh.size() > 1)
-        if prob.substrate != "streaming" and (checkpoint_dir is not None or resume):
-            raise ValueError("checkpoint_dir/resume only apply to substrate='streaming'")
-        with self.kernel_cache(prob):
-            if prob.substrate == "local":
-                if mesh is not None:
+        with hostsync.span("repro_torch.solve"):
+            if not isinstance(graph, EdgeList):
+                raise TypeError(f"solve() takes an EdgeList graph, got {type(graph).__name__}")
+            prob = problem.resolve(graph.n_nodes, have_mesh=mesh is not None and mesh.size() > 1)
+            if prob.substrate != "streaming" and (checkpoint_dir is not None or resume):
+                raise ValueError("checkpoint_dir/resume only apply to substrate='streaming'")
+            with self.kernel_cache(prob):
+                if prob.substrate == "local":
+                    if mesh is not None:
+                        raise ValueError(
+                            "substrate='local' is a host exploration + jit solve; "
+                            "a mesh does not apply"
+                        )
+                    return self._solve_local(graph, prob, seed)
+                if seed is not None:
                     raise ValueError(
-                        "substrate='local' is a host exploration + jit solve; "
-                        "a mesh does not apply"
+                        "seed= is the substrate='local' per-seed query knob; "
+                        f"substrate={prob.substrate!r} solves the whole graph"
                     )
-                return self._solve_local(graph, prob, seed)
-            if seed is not None:
-                raise ValueError(
-                    "seed= is the substrate='local' per-seed query knob; "
-                    f"substrate={prob.substrate!r} solves the whole graph"
-                )
-            if prob.substrate == "streaming":
-                return self._solve_streaming(graph, prob, checkpoint_dir, resume)
-            return self._solve(graph, prob, mesh)
+                if prob.substrate == "streaming":
+                    return self._solve_streaming(graph, prob, checkpoint_dir, resume)
+                return self._solve(graph, prob, mesh)
 
     def _solve(self, graph: EdgeList, prob: Problem, mesh=None) -> DenseSubgraphResult:
         if prob.stream_mode == "turnstile":
@@ -878,7 +881,11 @@ class Solver:
 
         The gather and relabel are prefix sums on the device
         (:func:`~repro_torch.core.engine.compact_edges`), and so is the next
-        rung's tiling; the host reads a few scalars per rung.
+        rung's tiling; the host reads a few scalars per rung (site
+        ``rung_scalars``).  Spans (while a profiler records):
+        ``repro_torch.rung.<i>`` around segment ``i`` (its passes, the fold
+        and the compaction), ``repro_torch.compact`` around the gather and
+        relabel, ``repro_torch.tiling`` around a ``'pallas'`` rung's tiling.
 
         With a ``mesh`` (``'twophase'``, or a direct call with
         ``'geometric'``) every rank holds the whole rung buffer and computes
@@ -920,91 +927,93 @@ class Solver:
             return full
 
         for seg_idx in range(_COMPACT_MAX_SEGMENTS):
-            seg_mp = tp_k1 if (twophase and seg_idx == 0) else mp
-            compact_below = None
-            if prob.compaction == "geometric" and not no_more_compact:
-                compact_below = max(len(src) // 2, 1)
+            with hostsync.span(f"repro_torch.rung.{seg_idx}"):
+                seg_mp = tp_k1 if (twophase and seg_idx == 0) else mp
+                compact_below = None
+                if prob.compaction == "geometric" and not no_more_compact:
+                    compact_below = max(len(src) // 2, 1)
 
-            edges = EdgeList(src=src, dst=dst, weight=w, mask=msk,
-                             n_nodes=n_cur, directed=graph.directed)
-            m_buf = len(src)
-            if mesh is None:
-                backend = _backend_for(prob, edges)
-            else:
-                from repro_torch.core.mapreduce import edge_shards, mesh_backend, shard_edges
+                edges = EdgeList(src=src, dst=dst, weight=w, mask=msk,
+                                 n_nodes=n_cur, directed=graph.directed)
+                m_buf = len(src)
+                if mesh is None:
+                    backend = _backend_for(prob, edges)
+                else:
+                    from repro_torch.core.mapreduce import edge_shards, mesh_backend, shard_edges
 
-                edges = shard_edges(edges, mesh, prob.edge_axes)
-                backend = mesh_backend(prob, mesh, n_cur)
-                m_buf = len(edges.src) * edge_shards(mesh, prob.edge_axes).count
-                if compact_below is not None:
-                    compact_below = max(m_buf // 2, 1)
-            out = run_cell(
-                edges, prob, c=c, backend=backend, max_passes=seg_mp,
-                init_alive=s_al, init_t_alive=t_al, init_t=t_done, init_best_empty=True,
-                compact_below=compact_below, init_alive_edges=cur_alive_edges,
-                init_ok_from_mask=True,
-            )
+                    edges = shard_edges(edges, mesh, prob.edge_axes)
+                    backend = mesh_backend(prob, mesh, n_cur)
+                    m_buf = len(edges.src) * edge_shards(mesh, prob.edge_axes).count
+                    if compact_below is not None:
+                        compact_below = max(m_buf // 2, 1)
+                out = run_cell(
+                    edges, prob, c=c, backend=backend, max_passes=seg_mp,
+                    init_alive=s_al, init_t_alive=t_al, init_t=t_done, init_best_empty=True,
+                    compact_below=compact_below, init_alive_edges=cur_alive_edges,
+                    init_ok_from_mask=True,
+                )
 
-            # ---- fold the segment into the global answer ----
-            t_prev, t_done = t_done, out.passes
-            s_al = out.alive
-            t_al = out.t_alive if directed else None
-            ta = t_al if directed else s_al
-            surv = (s_al | t_al) if directed else s_al
-            ok_e = msk & s_al[src] & ta[dst]
-            vals = [out.best_density, s_al.sum(), ok_e.sum()]
-            if directed:
-                vals += [t_al.sum(), surv.sum()]
-            got = hostsync.read(torch.stack([v.double() for v in vals]))
-            seg_rho, n_s, e_alive = got[0], int(got[1]), int(got[2])
-            n_t, n_alive = (int(got[3]), int(got[4])) if directed else (n_s, n_s)
-            if seg_rho > best_rho:  # strict: the earliest pass wins ties
-                best_rho = seg_rho
-                best_density = out.best_density
-                best_alive = to_original(out.best_alive)
+                # ---- fold the segment into the global answer ----
+                t_prev, t_done = t_done, out.passes
+                s_al = out.alive
+                t_al = out.t_alive if directed else None
+                ta = t_al if directed else s_al
+                surv = (s_al | t_al) if directed else s_al
+                ok_e = msk & s_al[src] & ta[dst]
+                vals = [out.best_density, s_al.sum(), ok_e.sum()]
                 if directed:
-                    best_t = to_original(out.best_t)
-                best_size = out.best_size
-            if prob.track_history:
-                shn = out.history_n
-                sel = shn >= 0
-                k = len(shn)
-                hist_n[:k] = torch.where(sel, shn, hist_n[:k])
-                hist_m[:k] = torch.where(sel, out.history_m, hist_m[:k])
-                hist_rho[:k] = torch.where(sel, out.history_rho, hist_rho[:k])
-            slots_scanned += (t_done - t_prev) * m_buf
-            segments.append({
-                "n_buf": int(n_cur),
-                "m_buf": int(m_buf),
-                "passes": int(t_done - t_prev),
-                "compact_below": compact_below,
-                "cache_hit": False,
-            })
+                    vals += [t_al.sum(), surv.sum()]
+                got = hostsync.read(torch.stack([v.double() for v in vals]), site="rung_scalars")
+                seg_rho, n_s, e_alive = got[0], int(got[1]), int(got[2])
+                n_t, n_alive = (int(got[3]), int(got[4])) if directed else (n_s, n_s)
+                if seg_rho > best_rho:  # strict: the earliest pass wins ties
+                    best_rho = seg_rho
+                    best_density = out.best_density
+                    best_alive = to_original(out.best_alive)
+                    if directed:
+                        best_t = to_original(out.best_t)
+                    best_size = out.best_size
+                if prob.track_history:
+                    shn = out.history_n
+                    sel = shn >= 0
+                    k = len(shn)
+                    hist_n[:k] = torch.where(sel, shn, hist_n[:k])
+                    hist_m[:k] = torch.where(sel, out.history_m, hist_m[:k])
+                    hist_rho[:k] = torch.where(sel, out.history_rho, hist_rho[:k])
+                slots_scanned += (t_done - t_prev) * m_buf
+                segments.append({
+                    "n_buf": int(n_cur),
+                    "m_buf": int(m_buf),
+                    "passes": int(t_done - t_prev),
+                    "compact_below": compact_below,
+                    "cache_hit": False,
+                })
 
-            # ---- terminated? ----
-            if t_done >= mp or not _host_keep_going(prob, n_s, n_t):
-                break
+                # ---- terminated? ----
+                if t_done >= mp or not _host_keep_going(prob, n_s, n_t):
+                    break
 
-            # ---- compact survivors into the next bucket ----
-            new_m = pow2_bucket(max(e_alive, 1), _COMPACT_MIN_EDGES)
-            new_n = pow2_bucket(max(n_alive, 1), _COMPACT_MIN_NODES)
-            if new_m >= len(src) and new_n >= n_cur:
-                no_more_compact = True  # bucket floor: finish on this buffer
-                continue
-            relabel = torch.cumsum(surv, 0, dtype=torch.int64) - 1  # keeps id order
-            src, dst, w = compact_edges(
-                ok_e, (relabel[src].to(torch.int32), relabel[dst].to(torch.int32), w),
-                new_m,
-            )
-            msk = torch.arange(new_m, device=dev) < e_alive
-            # id_map covers the real ids only; pad nodes are never alive.
-            (id_map,) = compact_edges(surv[: len(id_map)], (id_map,), n_alive)
-            if directed:
-                s_al, t_al = compact_edges(surv, (s_al, t_al), new_n)
-            else:
-                s_al = torch.arange(new_n, device=dev) < n_alive
-            n_cur = new_n
-            cur_alive_edges = e_alive
+                # ---- compact survivors into the next bucket ----
+                new_m = pow2_bucket(max(e_alive, 1), _COMPACT_MIN_EDGES)
+                new_n = pow2_bucket(max(n_alive, 1), _COMPACT_MIN_NODES)
+                if new_m >= len(src) and new_n >= n_cur:
+                    no_more_compact = True  # bucket floor: finish on this buffer
+                    continue
+                with hostsync.span("repro_torch.compact"):
+                    relabel = torch.cumsum(surv, 0, dtype=torch.int64) - 1  # keeps id order
+                    src, dst, w = compact_edges(
+                        ok_e, (relabel[src].to(torch.int32), relabel[dst].to(torch.int32), w),
+                        new_m,
+                    )
+                    msk = torch.arange(new_m, device=dev) < e_alive
+                    # id_map covers the real ids only; pad nodes are never alive.
+                    (id_map,) = compact_edges(surv[: len(id_map)], (id_map,), n_alive)
+                    if directed:
+                        s_al, t_al = compact_edges(surv, (s_al, t_al), new_n)
+                    else:
+                        s_al = torch.arange(new_n, device=dev) < n_alive
+                n_cur = new_n
+                cur_alive_edges = e_alive
         else:
             raise RuntimeError(f"compaction ladder exceeded {_COMPACT_MAX_SEGMENTS} segments")
 
@@ -1203,7 +1212,7 @@ class Solver:
         ``compaction='auto'`` quietly resolves to off and an explicit
         ladder raises.
         """
-        with self.kernel_cache(problem):
+        with hostsync.span("repro_torch.solve"), self.kernel_cache(problem):
             return self._solve_batch(graph, problem, eps=eps, c=c)
 
     def _solve_batch(self, graph, problem: Problem, *, eps=None, c=None) -> DenseSubgraphResult:

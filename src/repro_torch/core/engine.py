@@ -499,7 +499,11 @@ def run_peel(
     one buffer for all lanes, so it takes no ``compact_below``.
 
     Host syncs: one per pass (the continuation test, all lanes at once)
-    plus the final test.
+    plus the final test, at the site ``pass_test``.  Spans (while a
+    profiler records, :func:`repro_torch.hostsync.span`):
+    ``repro_torch.pass`` around each pass, and inside it
+    ``repro_torch.degrees`` around the edge filter, the masked weights and
+    the degree count, and around the carried filter of a compacted segment.
     """
     if with_edge_state and compact_below is None:
         raise ValueError("with_edge_state needs compact_below (the carried "
@@ -548,15 +552,16 @@ def run_peel(
         ta = s.t_alive if directed else s.alive
         # (3) of §5.2: the edge filter against the alive bitmap(s) — carried
         # from the previous pass's removal in a compacted segment.
-        ok = s.edge_ok if compact_below is not None else _edge_filter(edges, s.alive, ta, lane)
-        w_alive = torch.where(ok, edges.weight, 0.0)
-        # (2): the degree count — the only backend-dependent step.
-        kw = {} if lane is None else {"lanes": lane}
-        if directed:
-            deg_s, deg_t, total = backend.directed(edges, w_alive, **kw)
-        else:
-            deg_s, total = backend.undirected(edges, w_alive, **kw)
-            deg_t = deg_s
+        with hostsync.span("repro_torch.degrees"):
+            ok = s.edge_ok if compact_below is not None else _edge_filter(edges, s.alive, ta, lane)
+            w_alive = torch.where(ok, edges.weight, 0.0)
+            # (2): the degree count — the only backend-dependent step.
+            kw = {} if lane is None else {"lanes": lane}
+            if directed:
+                deg_s, deg_t, total = backend.directed(edges, w_alive, **kw)
+            else:
+                deg_s, total = backend.undirected(edges, w_alive, **kw)
+                deg_t = deg_s
         # (1): density + best-set tracking (strict >: earliest pass wins).
         rho = policy.density(total, n_s, n_t)
         improved = policy.eligible(n_s, n_t) & (rho > s.best_rho)
@@ -575,7 +580,8 @@ def run_peel(
         t_alive = ta & ~rm_t if directed else s.t_alive
         ok_next, ae = s.edge_ok, s.alive_edges
         if compact_below is not None:
-            ok_next = _edge_filter(edges, alive, t_alive if directed else alive, None)
+            with hostsync.span("repro_torch.degrees"):
+                ok_next = _edge_filter(edges, alive, t_alive if directed else alive, None)
             ae = _count_ok(backend, ok_next)
         if track_history:
             for hist, val in ((s.history_n, n_s), (s.history_m, total), (s.history_rho, rho)):
@@ -593,16 +599,18 @@ def run_peel(
         going = policy.keep_going(n_s, n_t)
         if compact_below is not None:
             going = going & (s.alive_edges >= compact_below)
-        flags = hostsync.read(going)
+        flags = hostsync.read(going, site="pass_test")
         if lane is None:
             if not flags:
                 break
-            s = body(s, n_s, n_t, None)
+            with hostsync.span("repro_torch.pass"):
+                s = body(s, n_s, n_t, None)
             continue
         if not any(flags):
             break
         lane.live = flags
-        s = body(s, n_s, n_t, None if all(flags) else going)
+        with hostsync.span("repro_torch.pass"):
+            s = body(s, n_s, n_t, None if all(flags) else going)
         lane_passes = [p + f for p, f in zip(lane_passes, flags)]
 
     outcome = PeelOutcome(
