@@ -3,15 +3,18 @@
 
     python3 chip_smoke.py
 
-Builds the port's five CUDA kernels from the sources in this checkout (one
+Builds the port's six CUDA libraries from the sources in this checkout (one
 ``nvcc`` each, all started together), holds each against its plain PyTorch
 version on the card, then drives the port's thirteen paths through the
 entry points a user calls:
 
 * Algorithm 1 on the geometric ladder, ``solve(edges,
-  Problem.undirected(eps, backend='pallas'))`` (K1, tiled degrees), on the
+  Problem.undirected(eps, backend='pallas'))`` (K1, tiled degrees, over the
+  tiling T1 builds once a rung, the rung tiling's counting sort), on the
   README quickstart graph, a 200k-node Chung-Lu graph and at FLICKR scale
-  (976k nodes, 7.6M edges drawn, Chung-Lu exponent 2.2, seed 0);
+  (976k nodes, 7.6M edges drawn, Chung-Lu exponent 2.2, seed 0); T1 is
+  also held against its plain version, and timed, at FLICKR's and
+  LIVEJOURNAL's first rungs;
 * the §5.1 Count-Sketch backend that ``backend='auto'`` picks above 1M
   nodes (K2, the counter update), at LIVEJOURNAL scale (4.84M nodes,
   68.9M edges drawn, Chung-Lu exponent 2.2, seed 0);
@@ -206,7 +209,7 @@ def phase_environment() -> str:
 
 
 def phase_build() -> None:
-    """Builds K1, K2, K3, K4 and K4b from this checkout's sources, one
+    """Builds K1, K2, K3, K4, K4b and T1 from this checkout's sources, one
     ``nvcc`` per source, all started together.  Then K4's and K4b's kernels
     as ``ptxas`` built them (registers, spills, shared memory; a K4b bf16
     kernel that spills fails) and the count
@@ -219,8 +222,10 @@ def phase_build() -> None:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.l0_sampler import ops as l0_ops
     from repro_torch.kernels.peel_degree import ops as pd_ops
+    from repro_torch.kernels.tile_bucket import ops as tb_ops
 
-    sources = [pd_ops.SOURCE, cs_ops.SOURCE, l0_ops.SOURCE, fa_ops.SOURCE, fa_ops.BWD_SOURCE]
+    sources = [pd_ops.SOURCE, cs_ops.SOURCE, l0_ops.SOURCE, fa_ops.SOURCE, fa_ops.BWD_SOURCE,
+               tb_ops.SOURCE]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(load_library, sources))
@@ -314,11 +319,13 @@ def _ptxas_kernels(ptxas: str) -> dict:
 
 
 def _adversarial_cases(dev):
-    """(name, tiling, w, n_nodes) layouts the kernel must get right."""
+    """(name, tiling, w, n_nodes) layouts the kernel must get right, tiled
+    by the plain ``bucket_edges_by_sort`` so that K1's checks do not rest
+    on T1 (``phase_tile_bucket`` checks T1)."""
     import numpy as np
     import torch
 
-    from repro_torch.graph.partition import TiledEdges, bucket_edges_by_tile
+    from repro_torch.graph.partition import TiledEdges, bucket_edges_by_sort
 
     rng = np.random.default_rng(1)
     cases = []
@@ -327,7 +334,7 @@ def _adversarial_cases(dev):
         s = torch.from_numpy(src.astype(np.int32)).to(dev)
         d = torch.from_numpy(dst.astype(np.int32)).to(dev)
         w = torch.from_numpy(rng.integers(0, 4, len(src)).astype(np.float32)).to(dev)
-        cases.append((name, bucket_edges_by_tile(s, d, n, tile_size=tile_size), w, n))
+        cases.append((name, bucket_edges_by_sort(s, d, n, tile_size=tile_size), w, n))
 
     for tile_size in (128, 1024):
         n = 50_000
@@ -512,6 +519,99 @@ def phase_kernel(flickr) -> dict:
     }
 
 
+def tile_bucket_bound_ms(n_edges: int) -> float:
+    """Least time of an undirected tiling on the card: src and dst read
+    twice (to count, then to place), 16 B an edge, and three int32 fields
+    written for each of the 2E slots, 24 B an edge, over HBM bandwidth."""
+    return n_edges * (16 + 24) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_tile_bucket(g, label: str) -> dict:
+    """T1, the rung tiling's counting sort, at ``g``'s first rung (tiles of
+    1,024, the main path's): bitwise its plain version
+    (``bucket_edges_by_sort``: cats, a stable ``torch.sort``,
+    ``searchsorted``, gathers, ``from_ragged``) in every field and in K1's
+    chunk plan, built with no host sync and counted once; then timed
+    beside the plain version and the library calls alone (the sort of the
+    int16 tile keys and the three gathers by its order), each path's peak
+    of device memory above the graph, and T1's device time by kernel."""
+    import torch
+
+    from repro_torch.graph.partition import bucket_edges_by_sort
+    from repro_torch.kernels.peel_degree.ops import tiling_for_edges
+    from repro_torch.kernels.tile_bucket.ops import bucket_slots
+
+    n, ts, e = g.n_nodes, 1024, int(g.src.shape[0])
+
+    def kernel():
+        return tiling_for_edges(g, tile_size=ts)
+
+    def plain():
+        return bucket_edges_by_sort(g.src, g.dst, n, tile_size=ts)
+
+    torch.cuda.synchronize()
+    bucket_slots.launches = 0
+    torch.cuda.set_sync_debug_mode("error")  # a host sync while tiling raises
+    try:
+        got = kernel()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if bucket_slots.launches != 1:
+        raise AssertionError(f"T1 at {label}: {bucket_slots.launches} tilings counted for 1")
+    want = plain()
+    for f in ("tile_ptr", "target_local", "source", "edge_index", "chunk_tile", "chunk_start"):
+        a, b = getattr(got, f), getattr(want, f)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"T1 at {label}: {f} != the plain version's")
+    for f in ("n_tiles", "n_slots", "chunk_slots", "n_edges"):
+        if getattr(got, f) != getattr(want, f):
+            raise AssertionError(f"T1 at {label}: {f} != the plain version's")
+    slots, tiles, cs = got.n_slots, got.n_tiles, got.chunk_slots
+    del got, want
+    log("tile_bucket.check", graph=label, slots=slots, tiles=tiles, chunk_slots=cs,
+        equal="bitwise (every field and the chunk plan)", host_syncs=0)
+
+    targets = torch.cat([g.dst, g.src])
+    keys = (targets // ts).to(torch.int16)  # the plain version's keys (tiles < 2^15)
+    values = (targets, torch.cat([g.src, g.dst]),
+              torch.arange(e, dtype=torch.int32, device=g.device).repeat(2))
+
+    def library():
+        order = torch.sort(keys, stable=True).indices
+        return [v[order] for v in values]
+
+    ms = [time_ms(kernel)]
+    plain_ms = [time_ms(plain)]
+    plain_ms.append(time_ms(plain))
+    ms.append(time_ms(kernel))
+    library_ms = time_ms(library)
+    del targets, keys, values
+    peak = {name: _peak_run(fn)[3] for name, fn in (("kernel", kernel), ("plain", plain))}
+    bound_ms = tile_bucket_bound_ms(e)
+    log("tile_bucket.time", graph=label, kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=bound_ms, roofline_share=bound_ms / min(ms),
+        peak_above_graph_mb=peak["kernel"], plain_peak_above_graph_mb=peak["plain"])
+    phase_profile(f"tile_bucket_{label}", kernel, kinds={
+        "count": ("digit_count_kernel",), "scatter": ("digit_scatter_kernel",),
+        "chunk_plan": ("chunk_plan_kernel",), "scan": ("scan", "Scan")})
+    return {
+        "name": "bucket_slots",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/tile_bucket/csrc/tile_bucket.cu",
+        "replaces": "none (the reference buckets with XLA's sort and takes: "
+                    "src/repro/graph/partition.py::bucket_edges_by_tile)",
+        "max_abs_err": 0.0,
+        "ms": statistics.median(ms),
+        "plain_ms": statistics.median(plain_ms),
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": library_ms,
+        "graph": label,
+        "slots": slots,
+        "tiles": tiles,
+    }
+
+
 OUTCOME_FIELDS = ("best_alive", "best_t", "best_density", "best_size", "alive", "t_alive",
                   "history_n", "history_m", "history_rho")
 
@@ -575,12 +675,14 @@ def phase_quickstart() -> None:
 
 
 def phase_flickr(flickr) -> dict:
-    """The main path at FLICKR scale: pallas (counted) against exact."""
+    """The main path at FLICKR scale: pallas (counted) against exact; K1
+    once a pass and T1 once a rung under pallas, neither under exact."""
     import torch
 
     from repro_torch import hostsync
     from repro_torch.core import Problem, solve
     from repro_torch.kernels.peel_degree.ops import tiled_degrees
+    from repro_torch.kernels.tile_bucket.ops import bucket_slots
 
     runs = {}
     for backend in ("pallas", "exact", "pallas", "exact"):
@@ -589,6 +691,7 @@ def phase_flickr(flickr) -> dict:
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         tiled_degrees.launches = 0
+        bucket_slots.launches = 0
         hostsync.read.count = 0
         t0 = time.perf_counter()
         res = solve(flickr, prob)
@@ -597,17 +700,21 @@ def phase_flickr(flickr) -> dict:
         launches, syncs = tiled_degrees.launches, hostsync.read.count
         peak = torch.cuda.max_memory_allocated() - base
         first = backend not in runs
-        runs.setdefault(backend, (res, launches))
         segs = res.extras["compaction"]["segments"]
+        tilings = bucket_slots.launches
+        if tilings != (len(segs) if backend == "pallas" else 0):
+            raise AssertionError(f"flickr {backend}: T1 {tilings} for {len(segs)} rungs")
+        runs.setdefault(backend, (res, launches, tilings))
         log("flickr", backend=backend, run="first" if first else "second", wall_ms=wall * 1e3,
             passes=res.passes, segments=len(segs), host_syncs=syncs, kernel_launches=launches,
+            t1_launches=tilings,
             peak_device_mb=torch.cuda.max_memory_allocated() / 2**20,
             peak_above_graph_mb=peak / 2**20, rho=float(res.best_density),
             size=int(res.best_size))
         if first:
             print("  segments: " + json.dumps(
                 [{k: s[k] for k in ("n_buf", "m_buf", "passes")} for s in segs]), flush=True)
-    (res_p, launches_p), (res_e, launches_e) = runs["pallas"], runs["exact"]
+    (res_p, launches_p, t1_p), (res_e, launches_e, _) = runs["pallas"], runs["exact"]
     _same_outcome("flickr pallas vs exact", res_p, res_e)
     if launches_p != res_p.passes or launches_e != 0:
         raise AssertionError(
@@ -615,8 +722,8 @@ def phase_flickr(flickr) -> dict:
             f"for {res_p.passes} passes"
         )
     log("flickr", equal="pallas == exact bitwise (sets, density, passes, history)",
-        kernel_launches=launches_p, passes=res_p.passes)
-    return {"launches": launches_p}
+        kernel_launches=launches_p, passes=res_p.passes, t1_launches=t1_p)
+    return {"launches": launches_p, "t1": t1_p}
 
 
 def _union_ms(intervals) -> float:
@@ -1181,6 +1288,7 @@ def phase_turnstile(flickr) -> dict:
     from repro_torch.kernels.l0_sampler import ops as l0_ops
     from repro_torch.kernels.l0_sampler.ops import add_wrapped
     from repro_torch.kernels.peel_degree.ops import tiled_degrees
+    from repro_torch.kernels.tile_bucket.ops import bucket_slots
 
     m = flickr.n_edges_padded
     rng = np.random.default_rng(0)
@@ -1199,6 +1307,7 @@ def phase_turnstile(flickr) -> dict:
 
     l0_ops.l0_delta.launches = 0
     tiled_degrees.launches = 0
+    bucket_slots.launches = 0
     td, apply_ms, _, peak = _peak_run(stream)
     updates = td.sketch.updates_applied
     t0 = time.perf_counter()
@@ -1206,17 +1315,21 @@ def phase_turnstile(flickr) -> dict:
     recover_ms = (time.perf_counter() - t0) * 1e3
     res, query_ms, syncs, _ = _peak_run(td.query)
     l0_launches, k1_launches = l0_ops.l0_delta.launches, tiled_degrees.launches
+    t1_launches = bucket_slots.launches
     n_batches = -(-m // TURNSTILE_BATCH) + 1  # the inserts, then one delete batch
     if not l0_launches == td.sketch.batches_applied == n_batches:
         raise AssertionError(f"K3 launches {l0_launches} for {td.sketch.batches_applied} batches")
     if k1_launches != res.passes or k1_launches == 0:
         raise AssertionError(f"K1 launches {k1_launches} for {res.passes} sample passes")
+    if t1_launches == 0:
+        raise AssertionError("the sample peel built no tiling on the card")
     log("turnstile", batches=td.sketch.batches_applied, updates=updates,
         apply_ms=apply_ms, updates_per_s=updates / (apply_ms / 1e3),
         peak_above_graph_mb=peak, k3_launches=l0_launches)
     log("turnstile", query_ms=query_ms, recover_ms=recover_ms,
         peel_ms=query_ms - recover_ms, level=level, sample_edges=len(edges),
         decode_rounds=info["decode_rounds"], passes=res.passes, k1_launches=k1_launches,
+        t1_launches=t1_launches,
         host_syncs=syncs, rho=float(res.best_density), size=int(res.best_size))
 
     # The sketch equals the plain version applied to the same batches
@@ -1260,7 +1373,7 @@ def phase_turnstile(flickr) -> dict:
         sampled_over_exact=float(res.best_density) / float(exact.best_density),
         envelope=(1 + EPS) * (2 + 2 * EPS))
     phase_profile("turnstile_stream_and_query", lambda: stream().query())
-    return {"launches": l0_launches}
+    return {"launches": l0_launches, "t1": t1_launches}
 
 
 def phase_golden_sketch_turnstile() -> None:
@@ -1475,7 +1588,7 @@ def _churn_service(flickr):
     return svc
 
 
-def phase_serve_resilience(flickr, flickr_cpu) -> None:
+def phase_serve_resilience(flickr, flickr_cpu) -> int:
     """``serve.resilience``: the bfs engine under ``FaultPlan(seed=0)``
     failing each ``serve.solve`` with p 0.3, ``max_retries=2`` and every
     degrade rung on, a turnstile density service on the card attached (fed
@@ -1484,17 +1597,20 @@ def phase_serve_resilience(flickr, flickr_cpu) -> None:
     under the same plan, and the answers too.  The CPU engine reads the
     same service (its sketch on the CPU would cost a minute of plain K3);
     both engines read a frozen clock, so no circuit breaker's cooldown
-    depends on the wall."""
+    depends on the wall.  Returns the card run's T1 count (the sample
+    peel's tilings)."""
     from repro_torch import faults
     from repro_torch.core import Problem
     from repro_torch.kernels.l0_sampler import ops as l0_ops
     from repro_torch.kernels.peel_degree.ops import tiled_degrees
+    from repro_torch.kernels.tile_bucket.ops import bucket_slots
     from repro_torch.serve import DensestQueryEngine, ResilienceConfig
 
     cfg = ResilienceConfig(max_retries=2, degrade_radius=True, degrade_turnstile=True,
                            degrade_last_good=True)
     l0_ops.l0_delta.launches = 0
     tiled_degrees.launches = 0
+    bucket_slots.launches = 0
     t0 = time.perf_counter()
     svc = _churn_service(flickr)
     feed_ms = (time.perf_counter() - t0) * 1e3
@@ -1511,7 +1627,7 @@ def phase_serve_resilience(flickr, flickr_cpu) -> None:
         runs[device] = results
         if device != DEV:
             continue
-        k1 = tiled_degrees.launches
+        k1, t1 = tiled_degrees.launches, bucket_slots.launches
         computed, served = svc.queries_computed, svc.queries_served
         passes = svc.result().passes  # the cached answer: no launch
         if k3 == 0 or k3 != svc.batches_applied:
@@ -1519,13 +1635,16 @@ def phase_serve_resilience(flickr, flickr_cpu) -> None:
         if k1 == 0 or k1 != passes or computed != 1:
             raise AssertionError(f"K1 launches {k1} != the sample peel's {passes} passes "
                                  f"({computed} peels)")
+        if t1 == 0:
+            raise AssertionError("serve.resilience: the sample peel built no tiling on the card")
         by = {}
         for r in results:
             key = r.status if r.fallback is None else f"{r.status}:{r.fallback.split(':')[0]}"
             by[key] = by.get(key, 0) + 1
         st = eng.stats()
         log("serve.resilience", queries=len(seeds), wall_ms=wall_ms, feed_ms=feed_ms,
-            k3_launches=k3, batches=svc.batches_applied, k1_launches=k1, sample_passes=passes,
+            k3_launches=k3, batches=svc.batches_applied, k1_launches=k1, t1_launches=t1,
+            sample_passes=passes,
             outcomes=by, solve_retries=st["solve_retries"],
             breaker_open_skips=st["breaker_open_skips"],
             service_queries_computed=computed, service_queries_served=served)
@@ -1540,6 +1659,7 @@ def phase_serve_resilience(flickr, flickr_cpu) -> None:
         raise AssertionError("serve.resilience: the plan degraded no query")
     log("serve.resilience", equal="(status, fallback, attempts) and answers == the CPU run "
         "under the same plan")
+    return t1
 
 
 def phase_build_cache() -> None:
@@ -1705,7 +1825,7 @@ def phase_stream(host, ladder, ladder_peak_mb, smi: str) -> None:
     survivors; killed after 3 passes and resumed; under a seeded fault
     storm; each bitwise equal to the first run.  Host syncs, bytes to the
     card and edges streamed per pass, peak device memory against the
-    ladder's, K1-K4b launches (none), one pass's profile and its host-read
+    ladder's, K1-K4b and T1 launches (none), one pass's profile and its host-read
     time."""
     import tempfile
 
@@ -1969,13 +2089,15 @@ def phase_mesh_directed(dg, mesh) -> None:
 
 
 def _kernel_counters():
-    """The five kernels' launch-counting wrappers."""
+    """The six kernels' launch-counting wrappers (T1's counts tilings)."""
     from repro_torch.kernels.count_sketch.ops import count_sketch_update
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_bwd
     from repro_torch.kernels.l0_sampler.ops import l0_delta
     from repro_torch.kernels.peel_degree.ops import tiled_degrees
+    from repro_torch.kernels.tile_bucket.ops import bucket_slots
 
-    return (tiled_degrees, count_sketch_update, l0_delta, flash_attention, flash_attention_bwd)
+    return (tiled_degrees, count_sketch_update, l0_delta, flash_attention, flash_attention_bwd,
+            bucket_slots)
 
 
 # -- Algorithms 2 and 3 and the sweep driver, through K1 and K2 ---------------
@@ -1990,25 +2112,29 @@ SWEEP_EPS = [0.25, 0.5, 1.0]
 DIRECTED_FLICKR = dict(n=976_000, avg_deg=7.8, ks=2_000, kt=500, p_dense=0.2, seed=0)
 DIRECTED_LJ = dict(n=4_840_000, avg_deg=14.24, ks=2_000, kt=500, p_dense=0.2, seed=0)
 DIRECTED_C = 4.0
-def phase_topk(flickr) -> None:
+def phase_topk(flickr) -> int:
     """Algorithm 2 on flickr_sm through the ladder: ``backend='pallas'``
-    (K1 once a pass) == ``'exact'`` bitwise, and the best set has at least
-    k nodes."""
+    (K1 once a pass, T1 once a rung) == ``'exact'`` bitwise, and the best
+    set has at least k nodes.  Returns the pallas run's T1 count."""
     from repro_torch.core import Problem, solve
     from repro_torch.kernels.peel_degree.ops import tiled_degrees
+    from repro_torch.kernels.tile_bucket.ops import bucket_slots
 
     runs = {}
     for backend in ("pallas", "exact"):
         prob = Problem.at_least_k(k=TOPK_K, eps=EPS, backend=backend, track_history=True)
         tiled_degrees.launches = 0
+        bucket_slots.launches = 0
         res, wall, syncs, peak = _peak_run(lambda: solve(flickr, prob))
-        launches = tiled_degrees.launches
-        runs[backend] = (res, launches)
+        launches, tilings = tiled_degrees.launches, bucket_slots.launches
+        segs = len(res.extras["compaction"]["segments"])
+        if tilings != (segs if backend == "pallas" else 0):
+            raise AssertionError(f"topk {backend}: T1 {tilings} for {segs} rungs")
+        runs[backend] = (res, launches, tilings)
         log("topk", backend=backend, k=TOPK_K, wall_ms=wall, passes=res.passes,
-            segments=len(res.extras["compaction"]["segments"]), host_syncs=syncs,
-            k1_launches=launches, peak_above_graph_mb=peak, rho=float(res.best_density),
-            size=int(res.best_size))
-    (res_p, launches_p), (res_e, launches_e) = runs["pallas"], runs["exact"]
+            segments=segs, host_syncs=syncs, k1_launches=launches, t1_launches=tilings,
+            peak_above_graph_mb=peak, rho=float(res.best_density), size=int(res.best_size))
+    (res_p, launches_p, t1_p), (res_e, launches_e, _) = runs["pallas"], runs["exact"]
     _same_outcome("topk pallas vs exact", res_p, res_e)
     if launches_p != res_p.passes or launches_e != 0:
         raise AssertionError(f"K1 launches {launches_p} (pallas) / {launches_e} (exact) "
@@ -2019,26 +2145,32 @@ def phase_topk(flickr) -> None:
         best_size=int(res_p.best_size), k=TOPK_K, k1_launches=launches_p)
     phase_profile("flickr_topk_pallas", lambda: solve(flickr, Problem.at_least_k(
         k=TOPK_K, eps=EPS, backend="pallas")))
+    return t1_p
 
 
-def phase_sweep(flickr) -> None:
+def phase_sweep(flickr) -> int:
     """An eps sweep on flickr_sm under ``'pallas'``: one peel loop for all
-    lanes, K1 once per live lane a pass, one host sync a pass; each lane
-    bitwise equal to a standalone solve (the ladder) at its eps."""
+    lanes, K1 once per live lane a pass, T1 once, one host sync a pass;
+    each lane bitwise equal to a standalone solve (the ladder) at its eps.
+    Returns the sweep's T1 count."""
     from repro_torch.core import Problem, solve, solve_batch
     from repro_torch.kernels.peel_degree.ops import tiled_degrees
+    from repro_torch.kernels.tile_bucket.ops import bucket_slots
 
     prob = Problem.undirected(backend="pallas", track_history=True)
     tiled_degrees.launches = 0
+    bucket_slots.launches = 0
     sweep, wall, syncs, peak = _peak_run(lambda: solve_batch(flickr, prob, eps=SWEEP_EPS))
-    launches = tiled_degrees.launches
+    launches, tilings = tiled_degrees.launches, bucket_slots.launches
     mp = sweep.provenance.max_passes
     if launches != sum(sweep.passes):
         raise AssertionError(f"K1 launches {launches} != lanes' passes {sweep.passes}")
+    if tilings != 1:
+        raise AssertionError(f"T1 {tilings} for one sweep")
     if syncs > max(sweep.passes) + 2:
         raise AssertionError(f"{syncs} host syncs for lanes of {sweep.passes} passes")
     log("sweep", eps=SWEEP_EPS, wall_ms=wall, passes=sweep.passes, max_passes=mp,
-        host_syncs=syncs, k1_launches=launches, peak_above_graph_mb=peak,
+        host_syncs=syncs, k1_launches=launches, t1_launches=tilings, peak_above_graph_mb=peak,
         rho=[float(x) for x in sweep.best_density], size=[int(x) for x in sweep.best_size])
     walls = []
     for i, e in enumerate(SWEEP_EPS):
@@ -2048,6 +2180,7 @@ def phase_sweep(flickr) -> None:
         _same_outcome(f"sweep lane eps={e} vs standalone", sweep, one, lane=i)
     log("sweep", equal="every lane == its standalone solve bitwise", standalone_wall_ms=walls)
     phase_profile("flickr_eps_sweep_pallas", lambda: solve_batch(flickr, prob, eps=SWEEP_EPS))
+    return tilings
 
 
 def _block_density(edges, s_ids, t_ids) -> float:
@@ -3357,7 +3490,7 @@ def phase_train_attention(smi: str) -> dict:
         got = torch.autograd.grad(out, (qq, kk, vv), dout)
         torch.cuda.synchronize()
         counts = _counts()
-        if counts != {"k1": 0, "k2": 0, "k3": 0, "k4": 1, "k4_bwd": 1}:
+        if counts != {"k1": 0, "k2": 0, "k3": 0, "k4": 1, "k4_bwd": 1, "t1": 0}:
             raise AssertionError(f"trainable route {dtype}: launches {counts}")
         launches += counts["k4"]
         bwd_launches += counts["k4_bwd"]
@@ -3603,9 +3736,9 @@ def _zero_counts() -> None:
 
 
 def _counts() -> dict:
-    k1, k2, k3, k4, k4_bwd = _kernel_counters()
+    k1, k2, k3, k4, k4_bwd, t1 = _kernel_counters()
     return {"k1": k1.launches, "k2": k2.launches, "k3": k3.launches, "k4": k4.launches,
-            "k4_bwd": k4_bwd.launches}
+            "k4_bwd": k4_bwd.launches, "t1": t1.launches}
 
 
 def _bench_record(phase: str, args, report: dict, launches: dict, seconds: float) -> None:
@@ -3700,7 +3833,7 @@ def phase_bench_paper(flickr, lj, mesh) -> dict:
 
     graphs = {"fig61": dict(edges=flickr), "table4": dict(edges=lj, t=5),
               "fig67": dict(mesh=mesh)}
-    total = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+    total = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "t1": 0}
     device = common.device_record(DEV)
     for name, fn in mod.ALL.items():
         rows, launches, sec = _drive(f"bench.paper.{name}",
@@ -3846,7 +3979,7 @@ def phase_examples() -> dict:
         raise AssertionError(f"example: launches {by_example}")
     if by_example["engine_matrix"]["k2"] == 0 or by_example["mapreduce_stream"]["k2"] == 0:
         raise AssertionError(f"example: no K2 launch {by_example}")
-    return {k: sum(v[k] for v in by_example.values()) for k in ("k1", "k2", "k3", "k4")}
+    return {k: sum(v[k] for v in by_example.values()) for k in ("k1", "k2", "k3", "k4", "t1")}
 
 
 # -- Path 12: the GNN and recsys families at full width (no kernel of K1-K4b:
@@ -4449,8 +4582,8 @@ def phase_gnn_cli(smi: str) -> None:
 
 
 def path_gnn(mesh, smi: str) -> dict:
-    """Path 12: every cell above, with the five kernels' counts set to 0
-    before and read after (no kernel of K1-K4b lies on this path)."""
+    """Path 12: every cell above, with the six kernels' counts set to 0
+    before and read after (no kernel of K1-K4b or T1 lies on this path)."""
     import torch
 
     t0 = time.perf_counter()
@@ -4469,7 +4602,7 @@ def path_gnn(mesh, smi: str) -> dict:
     phase_gnn_cli(smi)
     counts = _counts()
     if any(counts.values()):
-        raise AssertionError(f"path 12 launched a kernel of K1-K4b: {counts}")
+        raise AssertionError(f"path 12 launched a kernel of K1-K4b or T1: {counts}")
     log("gnn.path", seconds=round(time.perf_counter() - t0, 3), launches=counts, card=smi)
     return counts
 
@@ -4703,7 +4836,7 @@ def phase_launch_pipeline(mesh, smi: str) -> None:
 
 def path_launch(mesh, pred: dict, smi: str) -> dict:
     """Path 13: the dry-run, its accounting against the card, the pipeline;
-    K1-K4b launch 0 times here."""
+    K1-K4b and T1 launch 0 times here."""
     _zero_counts()
     t0 = time.perf_counter()
     phase_launch_dryrun(smi)
@@ -4735,8 +4868,10 @@ def main() -> int:
     log("flickr.graph", nodes=flickr.n_nodes, edges=flickr.n_edges_padded,
         gen_seconds=round(time.perf_counter() - t0, 3))
     k1 = phase_kernel(flickr)
+    t1_flickr = phase_tile_bucket(flickr, "flickr_sm")
     phase_quickstart()
-    k1.update(phase_flickr(flickr))
+    flickr_counts = phase_flickr(flickr)
+    k1["launches"] = flickr_counts["launches"]
     phase_profile("flickr_pallas", lambda: solve(flickr, Problem.undirected(eps=EPS,
                                                                             backend="pallas")))
     # Path 2: the Count-Sketch backend through K2 (livejournal_md).
@@ -4744,6 +4879,12 @@ def main() -> int:
     lj = generators.chung_lu_power_law(**LIVEJOURNAL, device=DEV)
     log("livejournal.graph", nodes=lj.n_nodes, edges=lj.n_edges_padded,
         gen_seconds=round(time.perf_counter() - t0, 3))
+    # T1 at livejournal_md's first rung: the kernels line's figures.
+    t1 = phase_tile_bucket(lj, "livejournal_md")
+    t1["launches"] = flickr_counts["t1"]
+    t1["at_flickr_sm"] = {k: t1_flickr[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                                     "slots", "tiles")}
+    t1["launches_by_path"] = {"flickr": flickr_counts["t1"]}
     k2 = phase_sketch_kernel(lj)
     k2_lj, lj_sketch = phase_livejournal(lj)
     k2.update(k2_lj)
@@ -4770,18 +4911,20 @@ def main() -> int:
     del lj_host, ladder
     # Path 3: the turnstile runtime through K3 (and K1 on the sample).
     k3 = phase_l0_kernel(flickr)
-    k3.update(phase_turnstile(flickr))
+    turnstile = phase_turnstile(flickr)
+    k3["launches"] = turnstile["launches"]
+    t1["launches_by_path"]["turnstile"] = turnstile["t1"]
     phase_golden_sketch_turnstile()
     # Path 5: Algorithms 2 and 3 and the sweep driver through K1 and K2.
-    phase_topk(flickr)
-    phase_sweep(flickr)
+    t1["launches_by_path"]["topk"] = phase_topk(flickr)
+    t1["launches_by_path"]["sweep"] = phase_sweep(flickr)
     # Path 6: per-seed serving (the engine in both modes, the local front
     # door, the resilience ladder over the turnstile service: K3 and K1)
     # and the cache of built kernels.
     flickr_cpu = flickr.to("cpu")
     phase_serve(flickr, flickr_cpu, "bfs")
     phase_serve(flickr, flickr_cpu, "local")
-    phase_serve_resilience(flickr, flickr_cpu)
+    t1["launches_by_path"]["serve.resilience"] = phase_serve_resilience(flickr, flickr_cpu)
     phase_stream_flickr(flickr, flickr_cpu)
     phase_mesh_flickr(flickr, flickr_cpu, mesh, cpu_mesh)
     del flickr_cpu
@@ -4877,16 +5020,16 @@ def main() -> int:
     log("done", seconds=round(time.perf_counter() - t_start, 3))
     k1.setdefault("launches_by_path", {"flickr": k1["launches"]})
     k3.setdefault("launches_by_path", {"turnstile": k3["launches"]})
-    for kern, key in ((k1, "k1"), (k2, "k2"), (k3, "k3")):
+    for kern, key in ((k1, "k1"), (k2, "k2"), (k3, "k3"), (t1, "t1")):
         kern["launches_by_path"].update(
             {path: n[key] for path, n in path9.items() if n[key]})
         kern["launches_by_path"]["gnn"] = gnn[key]
         kern["launches_by_path"]["launch"] = launch[key]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path", "moe_window",
-            "trainable", "f32")
+            "trainable", "f32", "graph", "slots", "tiles", "at_flickr_sm")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern}
-                                  for kern in (k1, k2, k3, k4, k4b)]}), flush=True)
+                                  for kern in (k1, k2, k3, k4, k4b, t1)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -182,17 +182,36 @@ def bucket_edges_by_tile(
     directed: bool = False,
 ) -> TiledEdges:
     """One-time 'shuffle': group endpoint slots by node tile, on the device
-    of ``src``, without reading anything back to the host.  A stable sort
-    of the slots' tile ids keeps the reference's in-tile order (int16 keys
-    when the tile ids fit: a stable sort gives the same permutation at any
-    key width, and the radix sort makes fewer passes); ``searchsorted`` over
-    the sorted ids gives the tile boundaries.
+    of ``src``, without reading anything back to the host; within a tile
+    the slots keep the reference's order.  ``kernels/tile_bucket``'s
+    wrapper builds the layout: on a CUDA tensor a hand-written stable
+    counting sort, on a CPU tensor its plain version,
+    :func:`bucket_edges_by_sort`.  The two are equal bitwise.
 
     For directed graphs only dst-targeted slots are produced (out-degree is
     bucketed separately by swapping arguments).
     """
     # int32 throughout (node and edge ids fit): halves the sort's traffic
     # and the transient memory of a rung's re-bucketing.
+    src = src.to(torch.int32)
+    dst = dst.to(torch.int32)
+    from repro_torch.kernels.tile_bucket.ops import bucket_slots  # it imports this module
+
+    return bucket_slots(src.contiguous(), dst.contiguous(), n_nodes, tile_size, directed)
+
+
+def bucket_edges_by_sort(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    n_nodes: int,
+    tile_size: int = 1024,
+    directed: bool = False,
+) -> TiledEdges:
+    """The plain version of :func:`bucket_edges_by_tile`, on any device.  A
+    stable sort of the slots' tile ids keeps the reference's in-tile order
+    (int16 keys when the tile ids fit: a stable sort gives the same
+    permutation at any key width, and the radix sort makes fewer passes);
+    ``searchsorted`` over the sorted ids gives the tile boundaries."""
     src = src.to(torch.int32)
     dst = dst.to(torch.int32)
     e = src.shape[0]

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-K1 (tiled degrees), K2 (Count-Sketch update), K3 (l0-sampler update) and
-K4 (flash attention), and the paths through them on the card against the
-port on the CPU.
+K1 (tiled degrees) and the rung tiling's counting sort that feeds it, K2
+(Count-Sketch update), K3 (l0-sampler update) and K4 (flash attention), and
+the paths through them on the card against the port on the CPU.
 
 These tests need an NVIDIA GPU (the kernels are CUDA C++ and have no CPU
 mode) and skip with that reason without one.  They import neither JAX nor
@@ -182,6 +182,96 @@ def test_solve_on_card_equals_cpu(cuda, compaction):
                   "history_m", "history_rho"):
             assert torch.equal(getattr(res, f).cpu(), getattr(answers[0], f).cpu()), f
         assert res.passes == answers[0].passes
+
+
+# -- the rung tiling's counting sort (kernels/tile_bucket) --------------------
+
+
+def _tile_bucket_case(name):
+    """(src, dst, n_nodes, tile_size) as int32 numpy arrays and ints."""
+    rng = np.random.default_rng(7)
+    if name.startswith("shape"):
+        n, m, ts = SHAPES[int(name[5:])]
+        return (rng.integers(0, n, m).astype(np.int32), rng.integers(0, n, m).astype(np.int32),
+                n, ts)
+    if name == "hub":  # node 3 in half the edges: one tile far above chunk_slots
+        n, m = 300_000, 2_000_000
+        src = rng.integers(0, n, m)
+        src[::2] = 3
+        return src.astype(np.int32), rng.integers(0, n, m).astype(np.int32), n, 1024
+    if name == "power_law":  # sorted (lo, hi) edges, hubs at the low ids, as in portbench
+        e = generators.chung_lu_power_law(200_000, avg_deg=20, seed=3, device="cpu")
+        return e.src.numpy(), e.dst.numpy(), e.n_nodes, 1024
+    if name == "empty_tiles":  # nodes 5,000..49,999 have no edge
+        a = np.concatenate([rng.integers(0, 5000, 40_000), rng.integers(50_000, 60_000, 40_000)])
+        b = np.concatenate([rng.integers(0, 5000, 40_000), rng.integers(50_000, 60_000, 40_000)])
+        return a.astype(np.int32), b.astype(np.int32), 60_000, 256
+    if name == "global_counters":  # 70,000 tiles: too many for shared-memory counters
+        n = 70_000
+        return (rng.integers(0, n, 500_000).astype(np.int32),
+                rng.integers(0, n, 500_000).astype(np.int32), n, 1)
+    if name.startswith("tile_size_"):  # 300: not a power of two
+        ts = int(name[10:])
+        src = rng.integers(0, 100_000, 400_000)
+        dst = rng.integers(0, 100_000, 400_000)
+        dst[::9] = src[::9]  # self-loops
+        return src.astype(np.int32), dst.astype(np.int32), 100_000, ts
+    if name == "padded_rung":  # a rung buffer: real edges, then (0, 0) padding
+        e = generators.erdos_renyi(30_000, avg_deg=10, seed=4, device="cpu").with_padding(1 << 18)
+        return e.src.numpy(), e.dst.numpy(), e.n_nodes, 1024
+    if name == "two_groups":  # 6M slots: more CTA tiles than one group of the last pass
+        n, m = 1_000_000, 3_000_000
+        return (rng.integers(0, n, m).astype(np.int32), rng.integers(0, n, m).astype(np.int32),
+                n, 1024)
+    if name == "one_edge":
+        return np.array([5], np.int32), np.array([2], np.int32), 10, 4
+    if name == "no_edge":
+        return np.zeros(0, np.int32), np.zeros(0, np.int32), 10, 4
+    raise ValueError(name)
+
+
+TILE_BUCKET_CASES = [f"shape{i}" for i in range(len(SHAPES))] + [
+    "hub", "power_law", "empty_tiles", "global_counters", "tile_size_256", "tile_size_1024",
+    "tile_size_300", "padded_rung", "two_groups", "one_edge", "no_edge"]
+
+
+@pytest.mark.parametrize("name", TILE_BUCKET_CASES)
+@pytest.mark.parametrize("directed", [False, True])
+def test_tile_bucket_kernel_equals_plain(cuda, name, directed):
+    """The counting sort's tiling equals the plain function's, run on CPU
+    copies, bitwise in every field and in the chunk plan; the launch
+    counter moves once for the CUDA tensor and not for the CPU one."""
+    from repro_torch.kernels.tile_bucket.ops import bucket_slots
+
+    src, dst, n, ts = _tile_bucket_case(name)
+    before = bucket_slots.launches
+    want = bucket_edges_by_tile(torch.from_numpy(src), torch.from_numpy(dst), n, tile_size=ts,
+                                directed=directed)
+    assert bucket_slots.launches == before
+    got = bucket_edges_by_tile(torch.from_numpy(src).to(cuda), torch.from_numpy(dst).to(cuda), n,
+                               tile_size=ts, directed=directed)
+    torch.cuda.synchronize()
+    assert bucket_slots.launches == before + 1
+    for f in ("tile_ptr", "target_local", "source", "edge_index", "chunk_tile", "chunk_start"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a.cpu(), b), f
+    assert (got.n_tiles, got.chunk_slots, got.n_edges) == (want.n_tiles, want.chunk_slots,
+                                                           want.n_edges)
+
+
+@pytest.mark.parametrize("n_tiles,passes", [(0, 1), (1, 1), (127, 1), (128, 2), (4727, 2),
+                                            (16383, 2), (16384, 3), (2**21, 4)])
+def test_tile_bucket_plan(cuda, n_tiles, passes):
+    """The library's plan: 7-bit digit passes over buckets 0..n_tiles (a
+    target outside the tiles goes to bucket n_tiles), at least one; CTA
+    tiles of 4,096 slots; 128 digits a pass."""
+    import ctypes
+
+    from repro_torch.kernels.tile_bucket import ops
+
+    plan = (ctypes.c_int * 3)()
+    assert ops._library().tile_bucket_plan(n_tiles, plan) == 0
+    assert list(plan) == [passes, 4096, 128]
 
 
 # -- K2: the Count-Sketch update kernel ---------------------------------------
